@@ -73,6 +73,11 @@ def pytest_configure(config):
         "chaos: fault-injection tests (SIGKILLed components, dropped "
         "frames). Tier-1 — selectable with -m chaos for focused runs.",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips without "
+        "one. Run on the card: python -m pytest tests/ -m cuda",
+    )
 
 
 @pytest.hookimpl(wrapper=True)
