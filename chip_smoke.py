@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --phases device,kernels
+    python3 chip_smoke.py                 # one card; takes no arguments
 
-Phases:
+Phases, all of them on every run, in this order:
   device   card name and power limit (nvidia-smi); builds every kernel from
            ray_tpu_torch/csrc/ and prints the build time and ptxas report.
   kernels  each kernel against its plain PyTorch version on the card, in
@@ -25,7 +24,6 @@ build/chip_smoke.json.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -35,7 +33,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
-ALL_PHASES = ("device", "kernels", "model", "serve")
+PHASES = ("device", "kernels", "model", "serve")
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM B/s.
 PEAKS = {
@@ -197,18 +195,21 @@ def phase_kernels(ctx):
           f"bound {bms:.4f} ms ({by}) on {ctx['card']}", flush=True)
 
     # ---- K4: paged decode attention ----------------------------------------
-    B, nh, nkv, D, ps, max_pages = 64, 16, 4, 128, 64, 8
-    total_pages = 1 + B * max_pages
+    # The serve phase's engine: 64 slots, page size 64, 513 pages, and a block
+    # table as wide as max_seq_len / page_size = 2048 / 64 = 32 pages; slots
+    # hold 1..512 rows (at most 8 pages each, 512 real pages in all).
+    B, nh, nkv, D, ps, max_pages, total_pages = 64, 16, 4, 128, 64, 32, 513
+    slot_pages = (total_pages - 1) // B
 
     def paged_inputs(seed):
         g = torch.Generator().manual_seed(seed)
-        lengths = torch.randint(1, max_pages * ps + 1, (B,), generator=g, dtype=torch.int32)
+        lengths = torch.randint(1, slot_pages * ps + 1, (B,), generator=g, dtype=torch.int32)
         lengths[:4] = 1                       # inactive-like slots: all-trash table rows
         perm = torch.randperm(total_pages - 1, generator=g) + 1
         table = torch.zeros((B, max_pages), dtype=torch.int32)
         for s in range(4, B):
             n = -(-int(lengths[s]) // ps)
-            table[s, :n] = perm[s * max_pages: s * max_pages + n]
+            table[s, :n] = perm[s * slot_pages: s * slot_pages + n]
         gd = torch.Generator(device="cuda").manual_seed(seed)
         kp = torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda").to(torch.bfloat16)
         vp = torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda").to(torch.bfloat16)
@@ -342,7 +343,7 @@ def phase_serve(ctx):
     finally:
         engine.stop()
     require(not engine._thread.is_alive(), "engine thread did not stop")
-    counts = dict(_kernels.launch_counts)
+    counts = {name: _kernels.launch_counts[name] for name in ("flash_fwd", "paged_attention")}
     s1 = engine.stats()
     programs = s1["prefill_programs"] - s0["prefill_programs"]
     ticks = s1["decode_steps"] - s0["decode_steps"]
@@ -350,10 +351,10 @@ def phase_serve(ctx):
         require(len(r["tokens"]) == max_tokens, f"request returned {len(r['tokens'])} tokens")
         require(all(0 <= t < cfg.vocab_size for t in r["tokens"]), "token outside the vocab")
     L = cfg.num_layers
-    require(counts.get("flash_fwd", 0) == L * programs,
-            f"flash_fwd launches {counts.get('flash_fwd')} != {L} x {programs} prefill programs")
-    require(counts.get("paged_attention", 0) == L * ticks,
-            f"paged_attention launches {counts.get('paged_attention')} != {L} x {ticks} ticks")
+    require(counts["flash_fwd"] == L * programs,
+            f"flash_fwd launches {counts['flash_fwd']} != {L} x {programs} prefill programs")
+    require(counts["paged_attention"] == L * ticks,
+            f"paged_attention launches {counts['paged_attention']} != {L} x {ticks} ticks")
     ttft = statistics.median(r["ttft_s"] for r in results)
     toks = sum(len(r["tokens"]) for r in results)
     ctx["serve"] = {"requests": n_req, "wall_s": wall, "req_per_s": n_req / wall,
@@ -366,16 +367,10 @@ def phase_serve(ctx):
           f"launches {counts}", flush=True)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(ALL_PHASES),
-                    help="comma-separated subset of: " + ", ".join(ALL_PHASES))
-    args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    bad = [p for p in phases if p not in ALL_PHASES]
-    if bad:
-        ap.error(f"unknown phases {bad}")
-
+def main() -> int:
+    if len(sys.argv) > 1:
+        print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -389,8 +384,7 @@ def main(argv=None) -> int:
         return 2
 
     ctx = {}
-    order = ["device"] + [p for p in ALL_PHASES if p in phases and p != "device"]
-    for name in order:
+    for name in PHASES:
         t0 = time.perf_counter()
         print(f"== phase {name}", flush=True)
         try:
@@ -403,19 +397,16 @@ def main(argv=None) -> int:
             return 1
         print(f"== phase {name} passed in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    kernels = []
-    for key in ("k1", "k4"):
-        if key in ctx:
-            entry = dict(ctx[key])
-            entry["launches"] = ctx.get("launches", {}).get(entry["name"], 0)
-            kernels.append(entry)
+    # launches: the serve phase's counts, the only run of the main path
+    kernels = [dict(ctx[key], launches=ctx["launches"][ctx[key]["name"]])
+               for key in ("k1", "k4")]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
-    if "serve" in ctx and idle:
+    if idle:
         print(f"chip_smoke: kernels never launched on the main path: {idle}", file=sys.stderr)
         return 1
     record = {"card": ctx["card"], "smi": ctx["smi"], "build_s": ctx["build_s"],
               "peaks": ctx["peaks_key"], "kernels": kernels,
-              "model_rel_err": ctx.get("model_rel_err"), "serve": ctx.get("serve")}
+              "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -40,18 +40,12 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int ROWS = 4;  // K/V rows a warp loads at once
 constexpr float NEG = -1e30f;
 
-// Load this lane's EPL consecutive bf16 values of a row as floats.
-template <int EPL>
-__device__ __forceinline__ void load_row(float (&dst)[EPL], const bf16* src) {
-  if constexpr (EPL == 4) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(src);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
-  } else {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
-    dst[0] = a.x; dst[1] = a.y;
-  }
+// Load this lane's 4 consecutive bf16 values of a row (8 bytes) as floats.
+__device__ __forceinline__ void load_row(float (&dst)[4], const bf16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
 }
 
 template <int D, int REP>
@@ -61,6 +55,7 @@ paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_po
                        const int* __restrict__ lengths, bf16* __restrict__ out, int n_kv,
                        int total_pages, int page_size, int max_pages) {
   constexpr int EPL = D / 32;  // elements of a row per lane
+  static_assert(EPL == 4, "load_row reads 4 elements a lane");
   __shared__ float sm_m[NWARPS][REP];
   __shared__ float sm_l[NWARPS][REP];
   __shared__ float sm_acc[NWARPS][REP][D];
@@ -74,7 +69,7 @@ paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_po
   float qr[REP][EPL];
   const bf16* qb = q + ((long)b * nh + (long)g * REP) * D + lane * EPL;
 #pragma unroll
-  for (int r = 0; r < REP; ++r) load_row<EPL>(qr[r], qb + r * D);
+  for (int r = 0; r < REP; ++r) load_row(qr[r], qb + r * D);
 
   const int len = max(0, min(lengths[b], max_pages * page_size));
   const long page_elems = (long)page_size * D;
@@ -101,8 +96,8 @@ paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_po
       if (valid[i]) {
         const int page = min(max(tb[t / page_size], 0), total_pages - 1);
         const long off = (long)page * page_elems + (long)(t % page_size) * D;
-        load_row<EPL>(kf[i], kg + off);
-        load_row<EPL>(vf[i], vg + off);
+        load_row(kf[i], kg + off);
+        load_row(vf[i], vg + off);
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kf[i][e] = vf[i][e] = 0.f;
@@ -188,19 +183,6 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_rep(int rep, const void* q, const void* k_pool, const void* v_pool, const void* table,
-               const void* lengths, void* out, int B, int n_kv, int total_pages, int page_size,
-               int max_pages, cudaStream_t st) {
-  switch (rep) {
-    case 1: return launch<D, 1>(q, k_pool, v_pool, table, lengths, out, B, n_kv, total_pages, page_size, max_pages, st);
-    case 2: return launch<D, 2>(q, k_pool, v_pool, table, lengths, out, B, n_kv, total_pages, page_size, max_pages, st);
-    case 4: return launch<D, 4>(q, k_pool, v_pool, table, lengths, out, B, n_kv, total_pages, page_size, max_pages, st);
-    case 8: return launch<D, 8>(q, k_pool, v_pool, table, lengths, out, B, n_kv, total_pages, page_size, max_pages, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" int paged_attention_bf16(const void* q, const void* k_pool, const void* v_pool,
@@ -211,12 +193,12 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pool, const voi
   if (n_kv <= 0 || nh % n_kv != 0 || page_size <= 0 || max_pages <= 0 || total_pages <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rep = nh / n_kv;
-  if (D == 128)
-    return launch_rep<128>(rep, q, k_pool, v_pool, table, lengths, out, B, n_kv, total_pages, page_size, max_pages, st);
-  if (D == 64)
-    return launch_rep<64>(rep, q, k_pool, v_pool, table, lengths, out, B, n_kv, total_pages, page_size, max_pages, st);
-  return (int)cudaErrorInvalidValue;
+  // Built for the one shape on the serving path (llama_1b, llama3_8b): D 128,
+  // 4 q heads per kv head. Other shapes get a template instance when a config
+  // on the path needs one.
+  if (D != 128 || nh / n_kv != 4) return (int)cudaErrorInvalidValue;
+  return launch<128, 4>(q, k_pool, v_pool, table, lengths, out, B, n_kv, total_pages, page_size,
+                        max_pages, st);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -79,17 +79,17 @@ def _paged_attention_reference(q, k_pool, v_pool, table, lengths, scale):
 def paged_attention(q, k_pool, v_pool, table, lengths):
     """Kernel wrapper. q: [B, nh, D], already scaled; pools: [n_kv, P_total,
     ps, D] (one layer); table: [B, max_pages] int32; lengths: [B] int32.
-    Launches the CUDA kernel for CUDA tensors (bf16, D 64 or 128, nh/n_kv in
-    {1, 2, 4, 8}) and raises on anything else; runs the plain version for CPU
-    tensors."""
+    Launches the CUDA kernel for CUDA tensors (bf16, D 128, nh/n_kv 4: the
+    shape of every config on the serving path) and raises on anything else;
+    runs the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return _paged_attention_reference(q, k_pool, v_pool, table, lengths, 1.0)
     b, nh, d = q.shape
     nkv, total_pages, ps, _ = k_pool.shape
     max_pages = table.shape[1]
-    if d not in (64, 128) or nh % nkv or nh // nkv not in (1, 2, 4, 8):
-        raise ValueError(f"paged_attention kernel takes D in (64, 128) and nh/n_kv in "
-                         f"(1, 2, 4, 8); got D={d}, nh={nh}, n_kv={nkv}")
+    if d != 128 or nh % nkv or nh // nkv != 4:
+        raise ValueError(f"paged_attention kernel takes D 128 and nh/n_kv 4; "
+                         f"got D={d}, nh={nh}, n_kv={nkv}")
     if v_pool.shape != k_pool.shape or k_pool.shape[3] != d:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not fit q")
     if table.shape[0] != b or lengths.shape != (b,):

@@ -81,9 +81,9 @@ def test_flash_fwd_rejects_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("b,nh,nkv,d,ps,max_pages", [
     (8, 16, 4, 128, 64, 8),
-    (5, 8, 8, 64, 16, 6),
-    (3, 8, 1, 128, 32, 4),
-    (4, 16, 2, 64, 64, 3),
+    (5, 32, 8, 128, 16, 6),     # llama3_8b's heads
+    (3, 4, 1, 128, 32, 4),
+    (64, 16, 4, 128, 64, 32),   # the serving engine's table width at llama_1b
 ])
 def test_paged_attention_matches_plain(dev, b, nh, nkv, d, ps, max_pages):
     g = torch.Generator().manual_seed(b + nh + d)
@@ -107,7 +107,7 @@ def test_paged_attention_matches_plain(dev, b, nh, nkv, d, ps, max_pages):
 
 
 def test_paged_attention_rejects_what_it_does_not_take(dev):
-    q = torch.randn(2, 4, 128, device=dev)
+    q = torch.randn(2, 8, 128, device=dev)
     pool = torch.zeros(2, 3, 16, 128, device=dev)
     table = torch.zeros(2, 2, dtype=torch.int32, device=dev)
     lengths = torch.ones(2, dtype=torch.int32, device=dev)
@@ -119,3 +119,7 @@ def test_paged_attention_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="nh/n_kv"):
         q6 = torch.zeros(2, 6, 128, device=dev, dtype=torch.bfloat16)
         pd.paged_attention(q6, pb[:1], pb[:1], table, lengths)
+    with pytest.raises(ValueError, match="D 128"):
+        q64 = torch.zeros(2, 8, 64, device=dev, dtype=torch.bfloat16)
+        p64 = torch.zeros(2, 3, 16, 64, device=dev, dtype=torch.bfloat16)
+        pd.paged_attention(q64, p64, p64, table, lengths)
