@@ -7,18 +7,27 @@ Phases, all of them on every run, in this order:
   device   card name and power limit (nvidia-smi); builds every kernel from
            ray_tpu_torch/csrc/ and prints the build time and ptxas report.
   kernels  each kernel against its plain PyTorch version on the card, in
-           bf16, at the serving path's shapes; max abs error against a
-           stated tolerance; kernel, plain, library and bound times.
+           bf16, at the serving and training paths' shapes; max abs error
+           against a stated tolerance; kernel, plain, library and bound
+           times.
   model    llama_1b at full width (random weights from a seed): one batched
            paged_prefill and a few paged_decode_one ticks, once through the
            kernels and once through the plain versions; logits compared.
   serve    LLMEngine(llama_1b, paged) serving 64 concurrent greedy requests;
            every request returns its tokens, and the kernels' launch counts
            match the engine's prefill programs and decode ticks exactly.
+  train    (a) loss and every gradient of llama_1b (22 layers), B2 S2048,
+           remat save_attn, through the kernels against the plain path,
+           with the peak memory of each; (b) the train step at full llama_1b (22 layers), save_attn,
+           B8 S2048 (ray_tpu_torch.bench): 3 warm-up steps, then 10 timed
+           steps, each of which must launch the lse forward, dQ and dK/dV
+           kernels exactly once per layer and the plain forward kernel never.
 
 Prints {"kernels": [...]} and the nvidia-smi line before the last line; the
 last line is {"ok": true, "device": {...}} only when every phase passed. Any
-failure exits non-zero and prints no result. A copy of the results goes to
+failure exits non-zero and prints no result. Each kernel's launches come
+from the phase whose path runs it (serve: flash_fwd, paged_attention; train:
+flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv). A copy of the results goes to
 build/chip_smoke.json.
 """
 
@@ -33,14 +42,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
-PHASES = ("device", "kernels", "model", "serve")
-
-# Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM B/s.
-PEAKS = {
-    "H100 SXM": (989e12, 3.35e12),
-    "H100 PCIe": (756e12, 2.0e12),
-    "H200 SXM": (989e12, 4.8e12),
-}
+PHASES = ("device", "kernels", "model", "serve", "train")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -48,12 +50,30 @@ PEAKS = {
 # 8-bit mantissa: both sides round to bf16 once); ATOL covers outputs near 0,
 # where the kernel's bf16 probabilities in P.V leave absolute error.
 KERNEL_RTOL, KERNEL_ATOL = 1.6e-2, 1e-2
+# Attention gradients, backward kernels against the plain backward (fp32 math
+# on the same bf16 inputs): |kernel - plain| <= GRAD_ATOL * max|plain| +
+# KERNEL_RTOL * |plain|. Both round to bf16 once (the rtol); the kernels'
+# bf16 p and ds in the products leave absolute error of a few bf16 ulps of
+# the gradient's own scale (the atol, relative to the largest gradient).
+GRAD_ATOL = 1e-2
+# lse, forward kernel against the plain log-sum-exp: both fp32, from the same
+# bf16 inputs; only the order of the sums differs.
+LSE_ATOL, LSE_RTOL = 1e-3, 1e-4
 # Model logits, kernel path against plain path: bf16 activations through 22
 # layers; max abs difference relative to the largest plain logit.
 MODEL_RTOL = 5e-2
+# Train loss and gradients, kernel path against plain path (bf16, 22 layers):
+# loss relative difference, and each gradient's max abs difference relative
+# to its largest plain element (bf16 activations and gradients: a few ulps).
+# The loss is a mean over 4096 tokens of fp32 log-sum-exps, so bf16 rounding
+# in the attention moves it far less than one ulp of bf16 (3.9e-3).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 5e-2
 
 FLASH_SRC = "ray_tpu_torch/csrc/flash_fwd.cu"
+BWD_SRC = "ray_tpu_torch/csrc/flash_bwd.cu"
 PAGED_SRC = "ray_tpu_torch/csrc/paged_attention.cu"
+# the training path's attention shape: llama_1b at batch 8, sequence 2048
+TRAIN_ATTN = (8, 2048, 2048, 16, 4, 128, True)
 
 
 class PhaseError(RuntimeError):
@@ -63,19 +83,6 @@ class PhaseError(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
-
-
-def peaks_for(name: str):
-    if "H200" in name:
-        key = "H200 SXM"
-    elif "H100" in name and "PCIe" in name:
-        key = "H100 PCIe"
-    elif "H100" in name:
-        key = "H100 SXM"
-    else:
-        key = "H100 SXM"
-        print(f"warning: no peaks known for {name!r}; bounds use {key}'s", flush=True)
-    return key, PEAKS[key]
 
 
 def close_ratio(out, ref) -> float:
@@ -111,6 +118,7 @@ def phase_device(ctx):
     import torch
 
     from ray_tpu_torch import _kernels
+    from ray_tpu_torch.bench import peaks_for
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -125,7 +133,7 @@ def phase_device(ctx):
     secs = _kernels.build_all()
     ctx["build_s"] = secs
     print(f"kernel build: {secs:.1f} s", flush=True)
-    for name in ("flash_fwd", "paged_attention"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention"):
         for line in _kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
@@ -240,6 +248,122 @@ def phase_kernels(ctx):
                  "library_ms": None, "shape": [B, nh, nkv, D, ps, max_pages]}
     print(f"paged_attention: {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}) "
           f"on {ctx['card']}", flush=True)
+    del q, kp, vp, table, lengths, out, ref, sets
+
+    # ---- K1', K2, K3: the training path's attention kernels -----------------
+    _train_attention_kernels(ctx)
+
+
+def _grad_ratio(out, ref) -> float:
+    """max |out - ref| / (GRAD_ATOL max|ref| + RTOL |ref|): passes at <= 1."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs() / (GRAD_ATOL * ref.abs().max() + KERNEL_RTOL * ref.abs())).max().item()
+
+
+def _train_attention_kernels(ctx):
+    """K1' (forward with lse), K2 (dQ) and K3 (dK/dV) at the training shape
+    and at a ragged Sq < Skv case: each against its plain version on the same
+    inputs (the kernels' own lse and delta feed both backward versions)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as ta
+
+    peaks = ctx["peaks"]
+    errs = {"k1l": [], "k2": [], "k3": []}
+    for i, case in enumerate((TRAIN_ATTN, (2, 100, 300, 16, 4, 128, True))):
+        b, sq, skv, hq, hkv, d, causal = case
+        scale = d ** -0.5
+        (q, k, v), = _flash_case(torch, b, sq, skv, hq, hkv, d, causal, seed=50 + i)
+        g = torch.Generator(device="cuda").manual_seed(60 + i)
+        dout = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+        out, lse = ta.flash_attention_lse(q, k, v, causal)
+        delta = ta._delta(out, dout)
+        dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+        dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        for t in (out, lse, dq, dk, dv):
+            require(bool(torch.isfinite(t).all()), f"attention kernels {case}: non-finite output")
+        ref_out, ref_lse = ta.reference_attention_lse(q, k, v, causal)
+        checks = [("flash_fwd_lse out", "k1l", out, ref_out, close_ratio(out, ref_out)),
+                  ("flash_fwd_lse lse", "k1l", lse, ref_lse,
+                   ((lse - ref_lse).abs() / (LSE_ATOL + LSE_RTOL * ref_lse.abs())).max().item())]
+        del ref_out, ref_lse
+        ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
+        checks.append(("flash_bwd_dq dq", "k2", dq, ref_dq, _grad_ratio(dq, ref_dq)))
+        del ref_dq
+        ref_dk, ref_dv = ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
+        checks += [("flash_bwd_dkv dk", "k3", dk, ref_dk, _grad_ratio(dk, ref_dk)),
+                   ("flash_bwd_dkv dv", "k3", dv, ref_dv, _grad_ratio(dv, ref_dv))]
+        for what, key, got, ref, ratio in checks:
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = (f"atol {LSE_ATOL} + rtol {LSE_RTOL} |plain|" if what.endswith("lse") else
+                   f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} |plain|" if what.endswith("out") else
+                   f"{GRAD_ATOL} max|plain| + rtol {KERNEL_RTOL} |plain|")
+            print(f"{what} {case}: max_abs_err {err:.3e}, worst error / ({tol}) = {ratio:.3f} "
+                  "(must be <= 1)", flush=True)
+            require(ratio <= 1.0, f"{what} {case} disagrees with its plain version: {ratio}")
+            errs[key].append(err)
+        del checks, ref_dk, ref_dv
+        torch.cuda.empty_cache()
+
+    b, sq, skv, hq, hkv, d, causal = TRAIN_ATTN
+    scale = d ** -0.5
+    sets = []
+    for i, (q, k, v) in enumerate(_flash_case(torch, *TRAIN_ATTN, seed=70, copies=2)):
+        g = torch.Generator(device="cuda").manual_seed(80 + i)
+        dout = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+        out, lse = ta.flash_attention_lse(q, k, v, causal)
+        sets.append((q, k, v, dout, lse, ta._delta(out, dout)))
+    times = {
+        "k1l": (cuda_ms(torch, lambda q, k, v, *_: ta.flash_attention_lse(q, k, v, causal), sets),
+                cuda_ms(torch, lambda q, k, v, *_: ta.reference_attention_lse(q, k, v, causal),
+                        sets, iters=3, warmup=1)),
+        "k2": (cuda_ms(torch, lambda *a: ta.flash_bwd_dq(*a, causal, scale), sets),
+               cuda_ms(torch, lambda *a: ta.flash_bwd_dq_reference(*a, causal, scale), sets,
+                       iters=3, warmup=1)),
+        "k3": (cuda_ms(torch, lambda *a: ta.flash_bwd_dkv(*a, causal, scale), sets),
+               cuda_ms(torch, lambda *a: ta.flash_bwd_dkv_reference(*a, causal, scale), sets,
+                       iters=3, warmup=1)),
+    }
+    # library yardsticks, timed only: SDPA forward, and SDPA's backward alone
+    # (dq, dk and dv together) on a graph built once per input set
+    sdpa_fwd = cuda_ms(torch, lambda q, k, v, *_: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+        enable_gqa=True), sets)
+    graphs = []
+    for q, k, v, dout, _, _ in sets:
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+        graphs.append((o, leaves, dout.transpose(1, 2)))
+    sdpa_bwd = cuda_ms(torch, lambda o, leaves, g: torch.autograd.grad(
+        o, leaves, g, retain_graph=True), graphs)
+    del graphs, sets
+    torch.cuda.empty_cache()
+
+    pairs = _visible_pairs(sq, skv, causal)
+    q_el, kv_el, rows = b * sq * hq * d, b * skv * hkv * d, b * hq * sq
+    work = {  # (flops, bytes): each input read once, each output written once
+        "k1l": (4.0 * b * hq * d * pairs, 2.0 * (2 * q_el + 2 * kv_el) + 4.0 * rows),
+        "k2": (6.0 * b * hq * d * pairs, 2.0 * (3 * q_el + 2 * kv_el) + 8.0 * rows),
+        "k3": (8.0 * b * hq * d * pairs, 2.0 * (2 * q_el + 4 * kv_el) + 8.0 * rows),
+    }
+    meta = {"k1l": ("flash_fwd_lse", FLASH_SRC, "ray_tpu/ops/attention.py:155", sdpa_fwd),
+            "k2": ("flash_bwd_dq", BWD_SRC, "ray_tpu/ops/attention.py:182", sdpa_bwd),
+            "k3": ("flash_bwd_dkv", BWD_SRC, "ray_tpu/ops/attention.py:224", sdpa_bwd)}
+    for key, (name, src, replaces, lib) in meta.items():
+        ms, plain = times[key]
+        bms, by = bound_ms(*work[key], peaks)
+        ctx[key] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                    "max_abs_err": max(errs[key]), "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                    "shape": list(TRAIN_ATTN)}
+        print(f"{name} {TRAIN_ATTN}: {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}: {work[key][0] / 1e9:.1f} GFLOP, "
+              f"{work[key][1] / 1e9:.3f} GB) on {ctx['card']}", flush=True)
+    print(f"library yardsticks: SDPA forward {sdpa_fwd:.4f} ms (for flash_fwd_lse); SDPA "
+          f"backward {sdpa_bwd:.4f} ms computes dq, dk and dv together (for flash_bwd_dq + "
+          f"flash_bwd_dkv: {times['k2'][0] + times['k3'][0]:.4f} ms)", flush=True)
 
 
 def _llama_1b():
@@ -367,6 +491,96 @@ def phase_serve(ctx):
           f"launches {counts}", flush=True)
 
 
+def phase_train(ctx):
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.bench import train_bench
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.train.step import _leaves
+
+    torch.cuda.empty_cache()
+    # (a) loss and gradients, kernels against the plain path: full llama_1b,
+    # B2 (both paths' gradients stay allocated for the comparison)
+    cfg = dataclasses.replace(_llama_1b(), remat="save_attn")
+    params = tl.llama_init(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2048))).cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+    leaves = _leaves(params)
+    names = []  # in _leaves' order
+    for key in sorted(params):
+        names += ([f"layers.{n}" for n in sorted(params["layers"])] if key == "layers" else [key])
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads():
+        loss = tl.llama_loss(params, tokens, targets, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    _kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k = grads()
+    torch.cuda.synchronize()
+    peak_k = torch.cuda.max_memory_allocated()
+    counts = dict(_kernels.launch_counts)
+    want = {"flash_fwd_lse": cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
+            "flash_bwd_dkv": cfg.num_layers}
+    require(counts == want, f"kernel train step launched {counts}, expected {want}")
+    _kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(ta, "flash_attention_lse", ta.reference_attention_lse), \
+            mock.patch.object(ta, "flash_bwd", ta.flash_bwd_reference):
+        loss_p, grads_p = grads()
+    torch.cuda.synchronize()
+    peak_p = torch.cuda.max_memory_allocated()
+    require(not any(_kernels.launch_counts.values()),
+            f"plain run launched kernels: {dict(_kernels.launch_counts)}")
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"train (a) llama_1b, {cfg.num_layers} layers, B2 S2048, save_attn: loss "
+          f"kernels {loss_k.item():.6f} plain {loss_p.item():.6f}, relative difference "
+          f"{rel_loss:.3e} (tol {TRAIN_LOSS_RTOL}); max_memory_allocated kernels "
+          f"{peak_k} B, plain {peak_p} B", flush=True)
+    worst = 0.0
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        require(bool(torch.isfinite(gk).all()), f"non-finite gradient {name}")
+        rel = ((gk.float() - gp.float()).abs().max() / gp.float().abs().max()).item()
+        print(f"  grad {name} {tuple(gk.shape)}: max|diff|/max|plain| {rel:.3e} "
+              f"(tol {TRAIN_GRAD_RTOL})", flush=True)
+        worst = max(worst, rel)
+    require(rel_loss <= TRAIN_LOSS_RTOL, f"train loss disagrees: {rel_loss}")
+    require(worst <= TRAIN_GRAD_RTOL, f"train gradients disagree: {worst} > {TRAIN_GRAD_RTOL}")
+    del params, leaves, grads_k, grads_p, tokens, targets
+    torch.cuda.empty_cache()
+
+    # (b) the train step at full llama_1b, as ray_tpu_torch.bench measures it
+    res = train_bench(steps=10, warmup=3)
+    L = _llama_1b().num_layers
+    want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    for i, rec in enumerate(res["per_step"]):
+        loss, gnorm = rec["loss"], rec["grad_norm"]
+        print(f"train (b) step {i}: loss {loss:.6f} grad_norm {gnorm:.6f} launches "
+              f"{dict(sorted(rec['launches'].items()))}", flush=True)
+        require(math.isfinite(loss) and math.isfinite(gnorm), f"step {i}: non-finite metrics")
+        require(rec["launches"] == want,
+                f"step {i} launched {rec['launches']}, expected {want} and no other kernel "
+                "(a second flash_fwd_lse per layer would mean save_attn re-ran the forward)")
+    print(f"train (b) on {ctx['card']} ({ctx['smi']}): llama_1b ({res['model_params']} params), "
+          f"22 layers, save_attn, B{res['batch']} S{res['seq']}: {res['step_ms']:.3f} ms/step, "
+          f"{res['value']} tokens/s, MFU {res['mfu']} ({ctx['peaks_key']} bf16 peak), "
+          f"max_memory_allocated {res['max_memory_allocated'] / 2**30:.3f} GiB, "
+          f"launches over {res['steps']} steps {res['launches']}", flush=True)
+    ctx["train"] = dict(res, rel_loss_a=rel_loss, rel_grad_a=worst, peak_a_kernels=peak_k,
+                        peak_a_plain=peak_p)
+    ctx["train_launches"] = res["launches"]
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -397,16 +611,18 @@ def main() -> int:
             return 1
         print(f"== phase {name} passed in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # launches: the serve phase's counts, the only run of the main path
-    kernels = [dict(ctx[key], launches=ctx["launches"][ctx[key]["name"]])
-               for key in ("k1", "k4")]
+    # launches: each kernel's count from the run of the path it lies on
+    runs = {"k1": ctx["launches"], "k1l": ctx["train_launches"], "k2": ctx["train_launches"],
+            "k3": ctx["train_launches"], "k4": ctx["launches"]}
+    kernels = [dict(ctx[key], launches=run.get(ctx[key]["name"], 0)) for key, run in runs.items()]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         print(f"chip_smoke: kernels never launched on the main path: {idle}", file=sys.stderr)
         return 1
     record = {"card": ctx["card"], "smi": ctx["smi"], "build_s": ctx["build_s"],
               "peaks": ctx["peaks_key"], "kernels": kernels,
-              "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"]}
+              "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
+              "train": ctx["train"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,3 +1,5 @@
-from ray_tpu_torch.models.llama import LlamaConfig, llama_forward, llama_init, params_from_jax
+from ray_tpu_torch.models.llama import (LlamaConfig, cross_entropy_loss, llama_forward,
+                                       llama_init, llama_loss, params_from_jax)
 
-__all__ = ["LlamaConfig", "llama_forward", "llama_init", "params_from_jax"]
+__all__ = ["LlamaConfig", "cross_entropy_loss", "llama_forward", "llama_init", "llama_loss",
+           "params_from_jax"]

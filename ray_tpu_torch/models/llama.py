@@ -8,20 +8,29 @@ Keeps the JAX package's parameter layout so weights convert one to one:
   ``nn.Linear``'s transposed layout;
 - ``tie_embeddings`` drops ``lm_head`` and reuses ``embed_tokens.T``.
 
-bf16 weights and activations, fp32 RMSNorm statistics and logits. No mesh
-and no rematerialization here: those come with the training slices.
+bf16 weights and activations, fp32 RMSNorm statistics and logits.
+Rematerialization (``LlamaConfig.remat``) maps the JAX package's modes onto
+``torch.utils.checkpoint`` (non-reentrant): ``"full"`` and
+``"nothing_saveable"`` recompute the whole layer in the backward,
+``"mlp_only"`` only its MLP, and ``"save_attn"`` everything but the flash
+op's outputs (out and lse), which selective checkpointing pins, so the
+backward never re-runs the attention forward. No mesh yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.attention import FLASH_ATTN_OP, attention
+from ray_tpu_torch.ops.loss import fused_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -40,6 +49,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: Optional[str] = "nothing_saveable"
     attention_impl: str = "auto"
 
     @property
@@ -140,6 +150,11 @@ def lm_head_weight(params: Dict[str, Any], config: LlamaConfig) -> torch.Tensor:
     return head
 
 
+def _mlp(config: LlamaConfig, x, norm_w, w_gate, w_up, w_down):
+    y = rms_norm(x, norm_w, config.rms_eps)
+    return (torch.nn.functional.silu(y @ w_gate) * (y @ w_up)) @ w_down
+
+
 def _layer(config: LlamaConfig, cos, sin, x, lp: Dict[str, torch.Tensor]):
     """One decoder layer. x: [B, S, H]; lp: per-layer params (no leading L)."""
     b, s, _ = x.shape
@@ -150,8 +165,40 @@ def _layer(config: LlamaConfig, cos, sin, x, lp: Dict[str, torch.Tensor]):
     v = (y @ lp["wv"]).reshape(b, s, nkv, hd)
     o = attention(q, k, v, causal=True, impl=config.attention_impl)
     x = x + o.reshape(b, s, nh * hd) @ lp["wo"]
-    y = rms_norm(x, lp["mlp_norm"], config.rms_eps)
-    return x + (torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
+    mlp_args = (config, x, lp["mlp_norm"], lp["w_gate"], lp["w_up"], lp["w_down"])
+    if config.remat == "mlp_only" and _records_grad(x, lp):
+        # recompute only the MLP: its [B, S, F] intermediates are the bulk of
+        # a layer's activations, and rebuilding them costs two matmuls
+        return x + checkpoint(_mlp, *mlp_args, use_reentrant=False)
+    return x + _mlp(*mlp_args)
+
+
+def _records_grad(x, lp) -> bool:
+    """Whether autograd records this layer (training): remat applies only then."""
+    return torch.is_grad_enabled() and (x.requires_grad
+                                        or any(w.requires_grad for w in lp.values()))
+
+
+def _save_attn_policy(ctx, op, *args, **kwargs):
+    if op == FLASH_ATTN_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_ATTN_CONTEXTS = functools.partial(create_selective_checkpoint_contexts, _save_attn_policy)
+REMAT_MODES = (None, "full", "nothing_saveable", "mlp_only", "save_attn")
+
+
+def _run_layer(config: LlamaConfig, cos, sin, x, lp):
+    if config.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {config.remat!r}; options: {REMAT_MODES}")
+    remat = config.remat if _records_grad(x, lp) else None
+    if remat in ("full", "nothing_saveable"):
+        return checkpoint(_layer, config, cos, sin, x, lp, use_reentrant=False)
+    if remat == "save_attn":
+        return checkpoint(_layer, config, cos, sin, x, lp, use_reentrant=False,
+                          context_fn=_SAVE_ATTN_CONTEXTS)
+    return _layer(config, cos, sin, x, lp)
 
 
 def llama_hidden(params: Dict[str, Any], tokens, config: LlamaConfig):
@@ -159,8 +206,13 @@ def llama_hidden(params: Dict[str, Any], tokens, config: LlamaConfig):
     _, s = tokens.shape
     cos, sin = rope_frequencies(config.head_dim_, s, config.rope_theta, device=tokens.device)
     x = params["embed_tokens"][tokens].to(config.dtype)
-    for i in range(config.num_layers):
-        x = _layer(config, cos, sin, x, layer_params(params, i))
+    # one unbind per stacked weight: its backward stacks the L layer
+    # gradients once, where indexing layer by layer would add L full-size
+    # zero-padded gradients
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    for weights in per_layer:
+        x = _run_layer(config, cos, sin, x, dict(zip(names, weights)))
     return rms_norm(x, params["final_norm"], config.rms_eps)
 
 
@@ -168,3 +220,21 @@ def llama_forward(params: Dict[str, Any], tokens, config: LlamaConfig):
     """tokens: [B, S] integer -> logits [B, S, vocab] (fp32)."""
     x = llama_hidden(params, tokens, config)
     return (x @ lm_head_weight(params, config)).float()
+
+
+def llama_loss(params: Dict[str, Any], tokens, targets, config: LlamaConfig, mask=None):
+    """Train loss through the fused, sequence-chunked LM head + CE
+    (ops/loss.py): the [B, S, V] logits are never held whole."""
+    x = llama_hidden(params, tokens, config)
+    return fused_cross_entropy(x, lm_head_weight(params, config), targets, mask)
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """logits: [B, S, V] fp32; targets: [B, S] integer. Mean (masked mean) NLL."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

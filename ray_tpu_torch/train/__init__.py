@@ -1,0 +1,6 @@
+from ray_tpu_torch.train.step import (AdamW, AdamWState, TrainState, default_optimizer,
+                                      make_eval_step, make_train_state_factory, make_train_step,
+                                      train_state_from_jax)
+
+__all__ = ["AdamW", "AdamWState", "TrainState", "default_optimizer", "make_eval_step",
+           "make_train_state_factory", "make_train_step", "train_state_from_jax"]

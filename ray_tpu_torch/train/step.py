@@ -1,0 +1,195 @@
+"""Train and eval steps (port of ray_tpu/train/step.py), on one device.
+
+``default_optimizer`` is optax's
+``chain(clip_by_global_norm(grad_clip), adamw(warmup_cosine_decay_schedule))``
+written out in PyTorch, so that both frameworks take the same update from
+the same state (``torch.optim.AdamW`` and ``clip_grad_norm_`` differ: the
+latter divides by ``norm + 1e-6``, optax by ``norm``):
+
+- the schedule rises linearly from 0 to ``lr`` over ``warmup_steps``, then
+  follows a cosine down to ``lr * 0.1`` at ``max(total_steps,
+  warmup_steps + 1)``; it is read at the update count *before* the update,
+  so update 0 runs at lr 0;
+- clipping scales every gradient by ``grad_clip / g_norm`` only when
+  ``g_norm >= grad_clip``;
+- AdamW: ``b1``, ``b2``, ``eps`` 1e-8, ``eps_root`` 0, bias correction, then
+  ``update = -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``; weight decay
+  applies to every leaf, with no mask;
+- the moments are kept in the parameters' dtype, as optax's
+  ``scale_by_adam`` keeps them (``mu_dtype=None``).
+
+The gradient norm is summed in fp32 (optax sums in the gradients' dtype; the
+two agree in fp32). The metrics are ``loss``, ``grad_norm`` (of the
+unclipped gradients) and ``step``. Parameters and moments are updated in
+place, the counterpart of the JAX step's ``donate=True``. No mesh yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.models.llama import (LlamaConfig, cross_entropy_loss, llama_forward,
+                                        llama_init, llama_loss, params_from_jax)
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict, in a fixed (key-sorted) order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [tree]
+
+
+def _zeros_like(tree):
+    return {k: _zeros_like(v) if isinstance(v, dict) else torch.zeros_like(v)
+            for k, v in tree.items()}
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: int  # updates applied so far (optax's ScaleByAdamState.count)
+    mu: Dict[str, Any]
+    nu: Dict[str, Any]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: Dict[str, Any]
+    opt_state: AdamWState
+
+
+EPS, EPS_ROOT = 1e-8, 0.0  # optax.adamw's defaults, which default_optimizer keeps
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+
+    def schedule(self, count: int) -> float:
+        """optax.warmup_cosine_decay_schedule(0, lr, warmup_steps,
+        max(total_steps, warmup_steps + 1), end_value=lr * 0.1) at ``count``,
+        in float32 with optax's own order of operations."""
+        f32, lr = np.float32, self.lr
+        if count < self.warmup_steps:
+            frac = f32(1) - f32(count) / f32(self.warmup_steps)
+            return float(f32(-lr) * frac + f32(lr))
+        decay_steps = max(self.total_steps, self.warmup_steps + 1) - self.warmup_steps
+        t = f32(min(count - self.warmup_steps, decay_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(decay_steps)))
+        alpha = 0.1
+        return float(f32(lr) * (f32(1 - alpha) * cosine + f32(alpha)))
+
+    def init(self, params) -> AdamWState:
+        return AdamWState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
+
+    @torch.no_grad()
+    def update_(self, grads: List[torch.Tensor], state: AdamWState, params) -> torch.Tensor:
+        """One update, in place on params and state. ``grads`` in the order of
+        ``_leaves(params)``. Returns the global norm of the unclipped
+        gradients (the step's ``grad_norm``)."""
+        g_norm = global_norm(grads)
+        keep = g_norm < self.grad_clip
+        count = state.count + 1
+        f32 = dict(dtype=torch.float32)
+        bc1 = 1 - torch.tensor(self.b1, **f32) ** count
+        bc2 = 1 - torch.tensor(self.b2, **f32) ** count
+        step_size = torch.tensor(-self.schedule(state.count), **f32)
+        for g, p, mu, nu in zip(grads, _leaves(params), _leaves(state.mu), _leaves(state.nu)):
+            g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip)
+            mu.mul_(self.b1).add_((1 - self.b1) * g)
+            nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
+            mu_hat = mu / bc1.to(device=mu.device, dtype=mu.dtype)
+            nu_hat = nu / bc2.to(device=nu.device, dtype=nu.dtype)
+            u = mu_hat / (torch.sqrt(nu_hat + EPS_ROOT) + EPS)
+            u = u + self.weight_decay * p
+            p.add_(step_size.to(device=u.device, dtype=u.dtype) * u)
+        state.count = count
+        return g_norm
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1, b1: float = 0.9,
+                      b2: float = 0.95, grad_clip: float = 1.0, warmup_steps: int = 100,
+                      total_steps: int = 10000) -> AdamW:
+    return AdamW(lr=lr, weight_decay=weight_decay, b1=b1, b2=b2, grad_clip=grad_clip,
+                 warmup_steps=warmup_steps, total_steps=total_steps)
+
+
+def make_train_state_factory(config: LlamaConfig, optimizer: AdamW) -> Callable[..., TrainState]:
+    """Returns init(seed=0, device=None) -> TrainState (on the card unless
+    ``device="cpu"``)."""
+
+    def init(seed: int = 0, device=None) -> TrainState:
+        params = llama_init(config, seed=seed, device=device)
+        return TrainState(step=0, params=params, opt_state=optimizer.init(params))
+
+    return init
+
+
+def make_train_step(config: LlamaConfig, optimizer: AdamW):
+    """(state, tokens, targets) -> (state, metrics). tokens/targets: [B, S].
+    The returned state holds the same tensors, updated in place."""
+
+    def step_fn(state: TrainState, tokens, targets) -> Tuple[TrainState, Dict[str, Any]]:
+        leaves = _leaves(state.params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss = llama_loss(state.params, tokens.long(), targets.long(), config)
+            grads = list(torch.autograd.grad(loss, leaves))
+        gnorm = optimizer.update_(grads, state.opt_state, state.params)
+        new_state = TrainState(step=state.step + 1, params=state.params,
+                               opt_state=state.opt_state)
+        return new_state, {"loss": loss.detach(), "grad_norm": gnorm, "step": new_state.step}
+
+    return step_fn
+
+
+def make_eval_step(config: LlamaConfig):
+    @torch.no_grad()
+    def eval_fn(params, tokens, targets):
+        return cross_entropy_loss(llama_forward(params, tokens.long(), config), targets)
+
+    return eval_fn
+
+
+def _optax_states(state):
+    """Every NamedTuple state inside a (nested) optax state."""
+    if hasattr(state, "_fields"):
+        yield state
+    if isinstance(state, tuple):
+        for s in state:
+            yield from _optax_states(s)
+
+
+def train_state_from_jax(jstate, device="cpu") -> TrainState:
+    """Carry a JAX ``TrainState`` made with ``ray_tpu.train.step.default_optimizer``
+    (step, params, optax state: the adam count, mu and nu, and the schedule's
+    count) into the port's state, bits copied exactly."""
+    states = list(_optax_states(jstate.opt_state))
+    adam = [s for s in states if "mu" in s._fields and "nu" in s._fields]
+    if len(adam) != 1:
+        raise ValueError("expected exactly one adam state (count, mu, nu) in the optax state")
+    counts = {int(np.asarray(s.count)) for s in states if "count" in s._fields}
+    if len(counts) != 1:
+        raise ValueError(f"the optax state's counts disagree: {sorted(counts)}")
+    return TrainState(step=int(np.asarray(jstate.step)),
+                      params=params_from_jax(jstate.params, device),
+                      opt_state=AdamWState(count=counts.pop(),
+                                           mu=params_from_jax(dict(adam[0].mu), device),
+                                           nu=params_from_jax(dict(adam[0].nu), device)))

@@ -8,13 +8,17 @@ one (and without JAX, which tests/conftest.py imports):
 Tolerance, bf16 kernel output against the plain version on the same bf16
 inputs: |kernel - plain| <= 1e-2 + 1.6e-2 |plain| (PyTorch's bf16 rtol;
 the atol covers outputs near 0, where the kernel's bf16 probabilities in
-P.V leave absolute error)."""
+P.V leave absolute error). The backward kernels' gradients are held to
+|kernel - plain| <= 1e-2 max|plain| + 1.6e-2 |plain|: both sides round to
+bf16 once, and the kernels' bf16 p and ds in the products leave absolute
+error of a few bf16 ulps of the gradient's own scale."""
 
 import pytest
 import torch
 
 from ray_tpu_torch import _kernels
 from ray_tpu_torch.models import paged_decode as pd
+from ray_tpu_torch.ops import attention as ta
 from ray_tpu_torch.ops.attention import flash_attention, reference_attention
 
 pytestmark = pytest.mark.cuda
@@ -52,11 +56,11 @@ def test_flash_fwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
     g = torch.Generator(device=dev).manual_seed(b * 1000 + sq + skv)
     q, k, v = _bf16((b, sq, hq, d), g, dev), _bf16((b, skv, hkv, d), g, dev), \
         _bf16((b, skv, hkv, d), g, dev)
-    before = _kernels.launch_counts["flash_fwd"]
+    before = _kernels.launch_counts["flash_fwd_lse"]
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     out = flash_attention(q, k, v, causal=causal, lse=lse)
     torch.cuda.synchronize()
-    assert _kernels.launch_counts["flash_fwd"] == before + 1
+    assert _kernels.launch_counts["flash_fwd_lse"] == before + 1
     _close(out, reference_attention(q, k, v, causal=causal))
     # lse against the plain log-sum-exp of the masked, scaled logits
     kr = k.float().repeat_interleave(hq // hkv, dim=2)
@@ -123,3 +127,74 @@ def test_paged_attention_rejects_what_it_does_not_take(dev):
         q64 = torch.zeros(2, 8, 64, device=dev, dtype=torch.bfloat16)
         p64 = torch.zeros(2, 3, 16, 64, device=dev, dtype=torch.bfloat16)
         pd.paged_attention(q64, p64, p64, table, lengths)
+
+
+def _close_grad(out, ref):
+    assert torch.isfinite(out).all()
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    assert (err <= 1e-2 * ref.abs().max() + RTOL * ref.abs()).all(), err.max().item()
+
+
+BWD_CASES = [
+    (8, 2048, 2048, 16, 4, 128, True),   # the training shape of llama_1b
+    (2, 100, 300, 16, 4, 128, True),     # ragged, Sq < Skv (bottom-right causal)
+    (1, 77, 77, 4, 1, 128, True),        # ragged
+    (1, 1, 65, 4, 1, 128, True),         # one query row
+    (1, 100, 70, 8, 2, 128, False),      # non-causal, Sq > Skv
+    (2, 128, 192, 8, 2, 128, False),     # non-causal, Sq < Skv
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", BWD_CASES)
+def test_flash_bwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + sq + skv + 1)
+    q, k, v = _bf16((b, sq, hq, d), g, dev), _bf16((b, skv, hkv, d), g, dev), \
+        _bf16((b, skv, hkv, d), g, dev)
+    dout = _bf16((b, sq, hq, d), g, dev)
+    out, lse = ta.flash_attention_lse(q, k, v, causal)
+    before = {n: _kernels.launch_counts[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    dq, dk, dv = ta.flash_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert all(_kernels.launch_counts[n] == c + 1 for n, c in before.items())
+    want = ta.flash_bwd_reference(q, k, v, out, lse, dout, causal)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _close_grad(got, ref)
+
+
+def test_flash_bwd_rejects_what_it_does_not_take(dev):
+    def case(b, sq, hq, hkv, d, dtype=torch.bfloat16):
+        q = torch.randn(b, sq, hq, d, device=dev).to(dtype)
+        k = torch.randn(b, sq, hkv, d, device=dev).to(dtype)
+        lse = torch.zeros(b, hq, sq, device=dev)
+        return q, k, k, q, lse, q
+    with pytest.raises(ValueError, match="head_dim"):
+        ta.flash_bwd(*case(1, 64, 8, 2, 64))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ta.flash_bwd(*case(1, 64, 8, 2, 128, torch.float32))
+    with pytest.raises(ValueError, match="4 q heads per kv head"):
+        ta.flash_bwd(*case(1, 64, 8, 4, 128))
+
+
+@pytest.mark.parametrize("b,sq,skv,causal", [(2, 256, 256, True), (1, 96, 160, True),
+                                             (1, 64, 128, False)])
+def test_flash_op_gradients_match_plain(dev, b, sq, skv, causal):
+    """The op with a gradient launches the lse forward and both backward
+    kernels once each; its gradients match autograd through the plain
+    forward (fp32 on the same bf16 inputs)."""
+    g = torch.Generator(device=dev).manual_seed(sq + skv)
+    q, k, v = _bf16((b, sq, 8, 128), g, dev), _bf16((b, skv, 2, 128), g, dev), \
+        _bf16((b, skv, 2, 128), g, dev)
+    dout = _bf16((b, sq, 8, 128), g, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    names = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+    before = {n: _kernels.launch_counts[n] for n in names}
+    out = ta.attention(*leaves, causal=causal)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [_kernels.launch_counts[n] - before[n] for n in names] == [0, 1, 1, 1]
+    plain = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ta.reference_attention(*plain, causal=causal).backward(dout.float())
+    for got, ref in zip(leaves, plain):
+        _close_grad(got.grad, ref.grad.to(torch.bfloat16))

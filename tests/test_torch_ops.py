@@ -191,3 +191,116 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     cfg = tl.LlamaConfig.tiny(dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tl.llama_init(cfg)
+
+
+# --------------------------------------------------------------------------- #
+# Training ops: RMSNorm backward, fused cross-entropy, flash lse and backward
+# --------------------------------------------------------------------------- #
+import importlib  # noqa: E402
+
+from ray_tpu.ops.loss import fused_cross_entropy as j_fused_ce  # noqa: E402
+from ray_tpu_torch.ops.loss import fused_cross_entropy as t_fused_ce  # noqa: E402
+
+# ray_tpu.ops re-exports the function `attention`, which shadows the module
+j_attn = importlib.import_module("ray_tpu.ops.attention")
+
+
+def _leaf(a):
+    return _t(a).clone().requires_grad_(True)
+
+
+@pytest.mark.parametrize("shape,eps", [((4, 16, 32), 1e-6), ((2, 3, 5, 64), 1e-5)])
+def test_rms_norm_grads_match_jax(shape, eps):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(shape[-1:]).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)  # the output's cotangent
+    jg = jax.grad(lambda x, w: (j_rms_norm(x, w, eps) * g).sum(), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    tx, tw = _leaf(x), _leaf(w)
+    (t_rms_norm(tx, tw, eps) * _t(g)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg[0]), atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jg[1]), atol=1e-5)
+
+
+@pytest.mark.parametrize("s,n_chunks,with_mask", [
+    (16, 4, False), (16, 4, True),
+    (15, 4, False), (15, 4, True),   # ragged: 15 % 4 != 0, largest divisor 3
+])
+def test_fused_cross_entropy_matches_jax(s, n_chunks, with_mask):
+    rng = np.random.default_rng(0)
+    b, h, v = 2, 8, 11
+    x = rng.standard_normal((b, s, h)).astype(np.float32)
+    head = rng.standard_normal((h, v)).astype(np.float32)
+    t = rng.integers(0, v, (b, s)).astype(np.int32)
+    mask = rng.integers(0, 2, (b, s)).astype(np.float32) if with_mask else None
+    jm = None if mask is None else jnp.asarray(mask)
+    with jax.default_matmul_precision("highest"):
+        jl, jg = jax.value_and_grad(
+            lambda x, hd: j_fused_ce(x, hd, jnp.asarray(t), jm, n_chunks), argnums=(0, 1))(
+            jnp.asarray(x), jnp.asarray(head))
+    tx, th = _leaf(x), _leaf(head)
+    tl = t_fused_ce(tx, th, _t(t), None if mask is None else _t(mask), n_chunks)
+    tl.backward()
+    assert abs(tl.item() - float(jl)) < 1e-5
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg[0]), atol=1e-5)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(jg[1]), atol=1e-5)
+
+
+FLASH_GRAD_CASES = [
+    # (b, sq, skv, hq, hkv, d, causal); Pallas interpret mode needs block multiples
+    (2, 64, 64, 4, 2, 32, True),     # GQA causal
+    (1, 64, 64, 4, 4, 32, False),    # MHA non-causal
+    (1, 32, 96, 4, 1, 32, True),     # Sq < Skv, bottom-right causal, 4 q heads per kv head
+    (1, 64, 128, 8, 2, 32, False),   # Sq < Skv non-causal
+]
+
+
+def _jax_flash_fwd_bwd(q, k, v, g, causal):
+    scale = q.shape[-1] ** -0.5
+    with jax.default_matmul_precision("highest"):
+        out, lse = j_attn._flash_fwd(*map(jnp.asarray, (q, k, v)), causal, scale, 32, 32,
+                                     True, with_lse=True)
+        grads = j_attn._flash_bwd(*map(jnp.asarray, (q, k, v)), out, lse, jnp.asarray(g),
+                                  causal, scale, 32, 32, True)
+    return np.asarray(out), np.asarray(lse)[..., 0], [np.asarray(a) for a in grads]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", FLASH_GRAD_CASES)
+def test_flash_lse_and_backward_reference_match_jax_interpret(b, sq, skv, hq, hkv, d, causal):
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, d, seed=1)
+    g = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
+    jout, jlse, jgrads = _jax_flash_fwd_bwd(q, k, v, g, causal)
+    out, lse = ta.flash_attention_lse(_t(q), _t(k), _t(v), causal)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), jout, atol=5e-5)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=5e-5)
+    # the plain backward from JAX's own residuals
+    grads = ta.flash_bwd_reference(_t(q), _t(k), _t(v), _t(jout), _t(jlse), _t(g), causal)
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-5)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", FLASH_GRAD_CASES)
+def test_flash_op_gradients_match_jax_custom_vjp(b, sq, skv, hq, hkv, d, causal):
+    q, k, v = _attn_inputs(b, sq, skv, hq, hkv, d, seed=3)
+    g = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        jgrads = jax.grad(lambda q, k, v: (j_flash_attention(
+            q, k, v, causal=causal, interpret=True, block_q=32, block_k=32) * g).sum(),
+            argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _leaf(q), _leaf(k), _leaf(v)
+    for impl in ("auto", "flash"):
+        for t in (tq, tk, tv):
+            t.grad = None
+        (ta.attention(tq, tk, tv, causal=causal, impl=impl) * _t(g)).sum().backward()
+        for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+def test_flash_backward_rejects_what_jax_rejects():
+    q, k, v = map(_t, _attn_inputs(1, 32, 16, 4, 2, 32))
+    with pytest.raises(ValueError, match="Skv >= Sq"):
+        ta.flash_bwd(q, k, v, q, torch.zeros(1, 4, 32), q, causal=True)
+    with pytest.raises(ValueError, match="Skv >= Sq"):
+        ta.flash_attention_lse(q, k, v, causal=True)
