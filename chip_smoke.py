@@ -170,6 +170,7 @@ def phase_kernels(ctx):
         (8, 512, 512, 16, 4, 128, True),   # prefill at llama_1b, largest bucket
         (2, 100, 300, 16, 4, 128, True),   # ragged, Sq < Skv (bottom-right causal)
         (2, 200, 333, 8, 2, 64, False),    # non-causal, ragged, head_dim 64
+        (2, 300, 700, 16, 4, 128, True),   # causal offset 400: not a multiple of the tiles
     ]
     errs = []
     for i, (b, sq, skv, hq, hkv, d, causal) in enumerate(cases):
@@ -262,7 +263,7 @@ def _grad_ratio(out, ref) -> float:
 
 def _train_attention_kernels(ctx):
     """K1' (forward with lse), K2 (dQ) and K3 (dK/dV) at the training shape
-    and at a ragged Sq < Skv case: each against its plain version on the same
+    and at two ragged Sq < Skv cases: each against its plain version on the same
     inputs (the kernels' own lse and delta feed both backward versions)."""
     import torch
     import torch.nn.functional as F
@@ -271,7 +272,8 @@ def _train_attention_kernels(ctx):
 
     peaks = ctx["peaks"]
     errs = {"k1l": [], "k2": [], "k3": []}
-    for i, case in enumerate((TRAIN_ATTN, (2, 100, 300, 16, 4, 128, True))):
+    for i, case in enumerate((TRAIN_ATTN, (2, 100, 300, 16, 4, 128, True),
+                              (2, 300, 700, 16, 4, 128, True))):
         b, sq, skv, hq, hkv, d, causal = case
         scale = d ** -0.5
         (q, k, v), = _flash_case(torch, b, sq, skv, hq, hkv, d, causal, seed=50 + i)

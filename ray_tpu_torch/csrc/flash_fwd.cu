@@ -1,267 +1,510 @@
 // Causal / non-causal GQA flash-attention forward for Hopper (sm_90a), bf16.
 //
 // Replaces: ray_tpu/ops/attention.py:_flash_fwd_kernel, launched through
-// _flash_fwd -> pl.pallas_call (the with_lse=False call on the serving path).
+// _flash_fwd -> pl.pallas_call: with_lse=False on the serving path (K1),
+// with_lse=True on the training path (K1').
 //
 // What it computes: out[b, i, h, :] = softmax(scale * q_i . K^T) V over the keys
 // j that row i may see (j < Skv, and j <= i + Skv - Sq when causal: the queries
 // sit after the cached keys, bottom-right alignment), with q head h reading kv
-// head h / (Hq / Hkv). Optionally lse[b, h, i] = m + log(l) (fp32), the residual
-// the training backward needs; the serving path passes a null pointer.
+// head h / (Hq / Hkv). Optionally lse[b, h, i] = m + log(l) (fp32, natural
+// log), the residual the training backward needs; the serving path passes a
+// null pointer.
 //
 // Bound on the H100: with causal masking and 4 q heads per kv head it does about
 // S * 0.4 flops per byte moved (~205 at S 512), under the card's ~295 bf16
 // flops per byte of HBM, so at the prefill buckets (S 64..512) its bound is
-// bytes, with operations close behind; longer sequences are bound by the
-// tensor cores (this kernel is still far from both; see PERF.md). The design
-// keeps the S x S scores out of device memory (online softmax with fp32
-// running max m, normaliser l and accumulator), feeds the
-// tensor cores bf16 operands through warp-level WMMA 16x16x16 products with
-// fp32 accumulation, skips key tiles that the causal mask hides entirely, and
-// loads the next K/V tile into registers while the current one is in use.
-// Ragged edges (S not a tile multiple, Sq < Skv) are masked here, so no caller
-// pads. Not yet done: wgmma, TMA and a deeper K/V ring (later work).
+// bytes, with operations close behind; at the training length (S 2048) it is
+// bound by the tensor cores. The design keeps the S x S scores out of device
+// memory (online softmax with fp32 running max m and normaliser l) and keeps
+// every operand path off the threads that do the math:
+//
+// - One block per (b, q head, 128-row q tile), 384 threads: warpgroup 0 only
+//   issues TMA loads (setmaxnreg down to 24 registers), warpgroups 1 and 2
+//   each own 64 query rows, one wgmma M tile (setmaxnreg up to 240).
+// - Q is loaded once; K and V tiles of 128 keys stream through a ring of
+//   STAGES slots in shared memory, each slot's K and V completing on their own
+//   mbarrier and released through a third one when both consumers are done.
+//   The tensor maps are 4-D over [B, S, H, D], so rows past a batch's end read
+//   as zero and the ragged edge costs no code. 128-byte swizzle: a row of D
+//   bf16 is D / 64 slabs of 128 bytes, one TMA box each, the layout the wgmma
+//   descriptors below read.
+// - S = Q.K^T by wgmma, both operands from shared memory (K as a K-major B),
+//   the fp32 scores in registers. Each row of the accumulator lies in the 4
+//   threads of a quad, so the online softmax takes two shuffles per row
+//   reduction, for all 64 rows at once; m and l stay in registers. Only the
+//   tiles that cross the diagonal or the ragged end are masked; tiles past
+//   the causal limit are never loaded.
+// - O += P.V by wgmma with P as the register A operand: the fp32 score
+//   accumulator packs pairwise into bf16 A fragments in place. V is read as
+//   an MN-major B (the transpose bit). O stays in registers for the whole
+//   loop; the rescale by exp(m_old - m_new) is a multiply on registers.
+// - Epilogue: O / l in bf16 is staged through the warpgroup's own rows of the
+//   Q tile (swizzled, conflict-free) and written by a TMA store, which clips
+//   the rows past Sq; lse is written from registers.
+// - Launch order: the q heads of one kv head are neighbours (their K/V reads
+//   meet in L2) and the widest causal q tiles go first.
+// Not done: a persistent grid, softmax overlapped with the next product, and
+// ping-pong scheduling of the two consumer warpgroups.
 //
 // Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], out [B, Sq, Hq, D], all
-// contiguous bf16; lse [B, Hq, Sq] fp32. Grid (ceil(Sq/64), Hq, B), 128 threads:
-// 4 warps, each owning 16 rows of the 64-row query tile.
+// contiguous bf16 and 16-byte aligned; lse [B, Hq, Sq] fp32. D 64 or 128.
+// Grid (Hq, B, ceil(Sq / 128)).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG = -1e30f;
+constexpr int BQ = 128;         // query rows per block: two consumer warpgroups of 64
+constexpr int BK = 128;         // keys per K/V tile
+constexpr int STAGES = 2;       // K/V ring depth
+constexpr int NTHREADS = 384;   // warpgroup 0 loads, warpgroups 1 and 2 compute
+constexpr uint32_t ROW = 128;   // bytes per row of a 64-column slab: the swizzle span
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// Shared-memory plan. Row pitches are padded (fewer bank conflicts) and keep
-// every WMMA tile pointer 32-byte aligned.
+// Shared-memory plan; every tile starts on a 1024-byte boundary (the period of
+// the 128-byte swizzle). A tile of R rows is D / 64 slabs of R x 128 bytes.
 template <int D>
 struct Smem {
-  static constexpr int LDH = D + 8;   // bf16 Q, K, V tiles
-  static constexpr int LDS = BK + 4;  // fp32 scores
-  static constexpr int LDP = BK + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;   // fp32 output accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(bf16) * BQ * LDH;
-  static constexpr size_t v_off = k_off + sizeof(bf16) * BK * LDH;
-  static constexpr size_t s_off = v_off + sizeof(bf16) * BK * LDH;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t row_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t bytes = row_off + sizeof(float) * 3 * BQ;
+  static constexpr int SLABS = D / 64;
+  static constexpr uint32_t q_bytes = BQ * D * 2;
+  static constexpr uint32_t kv_bytes = BK * D * 2;
+  static constexpr uint32_t k_off = q_bytes;
+  static constexpr uint32_t v_off = k_off + STAGES * kv_bytes;
+  static constexpr uint32_t bar_off = v_off + STAGES * kv_bytes;
+  // barriers: Q, then full_k, full_v and empty for each slot
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
 };
 
-// A 64-row tile of one head, staged in registers: each thread holds PER
-// 16-byte pieces, so all of a tile's loads are in flight at once.
-template <int D>
-struct TileRegs {
-  static constexpr int VEC = 8;  // bf16 per 16 bytes
-  static constexpr int VPR = D / VEC;
-  static constexpr int PER = 64 * VPR / NTHREADS;
-  uint4 v[PER];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // rows at or past rows_valid are zero-filled; row pitch row_stride elements
-  __device__ __forceinline__ void load(const bf16* src, int rows_valid, long row_stride) {
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * NTHREADS;
-      const int r = i / VPR, c = (i % VPR) * VEC;
-      v[j] = r < rows_valid ? *reinterpret_cast<const uint4*>(src + (long)r * row_stride + c)
-                            : make_uint4(0u, 0u, 0u, 0u);
-    }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed. A wait that
+// never ends (a lost arrival) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
   }
+}
 
-  __device__ __forceinline__ void store(bf16* dst) const {
+// One box of a 4-D tensor map (coordinates innermost first: d, head, row, batch).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d,
+                                         int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int d, int h,
+                                          int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(d), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for 128-byte-swizzled slabs, the layout TMA
+// writes with CU_TENSOR_MAP_SWIZZLE_128B: start address, leading and stride
+// byte offsets (16-byte units), layout type 1 (128B swizzle) in bits 62-63.
+// K-major operands: sbo = 1024 (8 rows of 128 bytes), lbo unused. MN-major:
+// sbo = 1024 (8 rows of K), lbo = the distance between 64-column slabs.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across the
+// asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * NTHREADS;
-      *reinterpret_cast<uint4*>(dst + (i / VPR) * Smem<D>::LDH + (i % VPR) * VEC) = v[j];
-    }
-  }
-};
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x by the special-function unit (flush-to-zero; exp2f's denormal handling
+// costs three more instructions per score). 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (+)= A . B, A [64 x 16] and B [16 x 128] both K-major from shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d += A . B, A [64 x 16] bf16 from registers (a: this thread's fragment),
+// B [16 x 128] MN-major from shared memory (transposed on read).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A . B, A [64 x 16] bf16 from registers (a: this thread's fragment),
+// B [16 x 64] MN-major from shared memory (transposed on read).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int Sq, int Skv, int Hq, int Hkv, int causal, float scale) {
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (D == 128) wgmma_rs_n128(o, a, desc);
+  else wgmma_rs_n64(o, a, desc);
+}
+
+// Accumulator layout of an m64nN wgmma (fp32), per thread of a warpgroup:
+// element i sits in row 16 * warp + lane / 4 + 8 * ((i >> 1) & 1) and column
+// 8 * (i / 4) + 2 * (lane % 4) + (i & 1). So a thread holds two rows, and each
+// row lies in the 4 threads of one quad.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int causal,
+                 float scale) {
   using SM = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + SM::q_off);
-  bf16* sK = reinterpret_cast<bf16*>(smem + SM::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + SM::v_off);
-  float* sS = reinterpret_cast<float*>(smem + SM::s_off);
-  bf16* sP = reinterpret_cast<bf16*>(smem + SM::p_off);
-  float* sO = reinterpret_cast<float*>(smem + SM::o_off);
-  float* sM = reinterpret_cast<float*>(smem + SM::row_off);
-  float* sL = sM + BQ;
-  float* sA = sL + BQ;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t bar_q = base + SM::bar_off;
+  const uint32_t bar_full_k = bar_q + 8;                // + 8 s
+  const uint32_t bar_full_v = bar_full_k + 8 * STAGES;  // + 8 s
+  const uint32_t bar_empty = bar_full_v + 8 * STAGES;   // + 8 s
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;  // the q heads of one kv head are neighbours in launch order
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the widest causal q tiles first
   const int hk = h / (Hq / Hkv);
   const int offset = Skv - Sq;  // query row i sits at absolute position offset + i
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  const long q_rs = (long)Hq * D;
-  const long kv_rs = (long)Hkv * D;
-  const bf16* qb = q + ((long)b * Sq + q0) * q_rs + (long)h * D;
-  const bf16* kb = k + (long)b * Skv * kv_rs + (long)hk * D;
-  const bf16* vb = v + (long)b * Skv * kv_rs + (long)hk * D;
-
-  TileRegs<D> rk, rv;  // the next K/V tile, in flight while the current one is used
-  rk.load(qb, min(BQ, Sq - q0), q_rs);
-  rk.store(sQ);
-  for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) sO[(i / D) * SM::LDO + i % D] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    sM[i] = NEG;
-    sL[i] = 0.f;
-  }
-
   // Block-level causal skip: no row of this tile sees a key at or past kv_end.
   const int kv_end = causal ? min(Skv, q0 + BQ + offset) : Skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
-  if (n_tiles > 0) {
-    rk.load(kb, min(BK, Skv), kv_rs);
-    rv.load(vb, min(BK, Skv), kv_rs);
-  }
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    rk.store(sK);
-    rv.store(sV);
-    __syncthreads();
-    if (j + 1 < n_tiles) {  // prefetch: these loads overlap this tile's math
-      const int k1 = k0 + BK;
-      rk.load(kb + (long)k1 * kv_rs, min(BK, Skv - k1), kv_rs);
-      rv.load(vb + (long)k1 * kv_rs, min(BK, Skv - k1), kv_rs);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full_k + 8 * s, 1);
+      mbar_init(bar_full_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread releases the slot
     }
-
-    // Scores for this warp's 16 rows against all BK keys: Q [16, D] . K^T.
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * SM::LDH + kk, SM::LDH);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          // K stored [key, d] row-major is K^T in column-major order.
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, sK + n * 16 * SM::LDH + kk, SM::LDH);
-          wmma::mma_sync(acc[n], fa, fb, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(sS + warp * 16 * SM::LDS + n * 16, acc[n], SM::LDS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax, one row at a time; each lane takes BK/32 columns.
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qpos = q0 + r + offset;
-      float s[BK / 32];
-      bool ok[BK / 32];
-      float mx = NEG;
-#pragma unroll
-      for (int c = 0; c < BK / 32; ++c) {
-        const int col = lane + c * 32;
-        const int kpos = k0 + col;
-        ok[c] = kpos < Skv && (!causal || kpos <= qpos);
-        s[c] = sS[r * SM::LDS + col] * scale;  // scale after the dot, in fp32
-        if (ok[c]) mx = fmaxf(mx, s[c]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < BK / 32; ++c) {
-        const float p = ok[c] ? expf(s[c] - m_new) : 0.f;
-        sum += p;
-        sP[r * SM::LDP + lane + c * 32] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();  // every lane has read sM[r]
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-        sA[r] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // Rescale this warp's accumulator rows, then accumulate P [16, BK] . V.
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = warp * 16 + i / D;
-      sO[r * SM::LDO + i % D] *= sA[r];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      float* optr = sO + warp * 16 * SM::LDO + n * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, optr, SM::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + warp * 16 * SM::LDP + kk, SM::LDP);
-        wmma::load_matrix_sync(fb, sV + kk * SM::LDH + n * 16, SM::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(optr, acc, SM::LDO, wmma::mem_row_major);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < Sq) {
-      const float l = fmaxf(sL[r], 1e-30f);
-      out[((long)b * Sq + q0 + r) * q_rs + (long)h * D + c] =
-          __float2bfloat16(sO[r * SM::LDO + c] / l);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, SM::q_bytes);
+#pragma unroll
+      for (int c = 0; c < SM::SLABS; ++c)
+        tma_load(sQ + c * BQ * ROW, &tm_q, bar_q, 64 * c, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(bar_empty + 8 * s, ((j / STAGES) - 1) & 1);
+        const uint32_t sK = base + SM::k_off + s * SM::kv_bytes;
+        const uint32_t sV = base + SM::v_off + s * SM::kv_bytes;
+        mbar_expect_tx(bar_full_k + 8 * s, SM::kv_bytes);
+#pragma unroll
+        for (int c = 0; c < SM::SLABS; ++c)
+          tma_load(sK + c * BK * ROW, &tm_k, bar_full_k + 8 * s, 64 * c, hk, j * BK, b);
+        mbar_expect_tx(bar_full_v + 8 * s, SM::kv_bytes);
+#pragma unroll
+        for (int c = 0; c < SM::SLABS; ++c)
+          tma_load(sV + c * BK * ROW, &tm_v, bar_full_v + 8 * s, 64 * c, hk, j * BK, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup w owns query rows q0 + 64 w .. + 63 --------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int w = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row0 = 16 * (t / 32) + lane / 4;  // this thread's rows: row0 and row0 + 8
+    const int qw0 = q0 + 64 * w;
+    const int lim0 = qw0 + row0 + offset;       // the last key each row may see (causal)
+    const int lim1 = lim0 + 8;
+    const float sl2 = scale * LOG2E;            // scale after the dot, in fp32; exp2 domain
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of scale * log2(e) * q.k
+    float l[2] = {0.f, 0.f};              // this thread's part of the running sum
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const uint32_t parity = (j / STAGES) & 1;
+      const uint32_t sK = base + SM::k_off + s * SM::kv_bytes;
+      const uint32_t sV = base + SM::v_off + s * SM::kv_bytes;
+      const int k0 = j * BK;
+
+      // S = Q . K^T: D / 16 products of depth 16, 32 bytes along each slab row
+      float sc[BK / 2];
+      mbar_wait(bar_full_k + 8 * s, parity);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32u;  // 16 bf16 into the slab row
+        const uint64_t da = smem_desc(sQ + (kk / 4) * BQ * ROW + 64 * w * ROW + step, 16, 1024);
+        const uint64_t db = smem_desc(sK + (kk / 4) * BK * ROW + step, 16, 1024);
+        wgmma_ss_n128(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // Mask only the tiles that cross the causal diagonal or the ragged end.
+      if (k0 + BK > Skv || (causal && k0 + BK - 1 > qw0 + offset)) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          if (key >= Skv || (causal && key > ((i & 2) ? lim1 : lim0))) sc[i] = -INFINITY;
+        }
+      }
+
+      // Online softmax on registers: row max and sum over the quad.
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], mb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * sl2);
+        mb[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing visible yet
+        alpha[r] = exp2_approx(m[r] - mb[r]);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2_approx(fmaf(sc[i], sl2, -mb[r]));
+        l[r] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // P in bf16 as wgmma A fragments: k step kt takes score columns
+      // 16 kt .. 16 kt + 15, i.e. accumulator elements 8 kt .. 8 kt + 7.
+      uint32_t p[BK / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) p[kt][x] = pack_bf16(sc[8 * kt + 2 * x], sc[8 * kt + 2 * x + 1]);
+
+      // O += P . V: V [keys, D] is the MN-major B operand, 16 keys per step
+      mbar_wait(bar_full_v + 8 * s, parity);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+        wgmma_pv<D>(o, p[kt], smem_desc(sV + kt * 16 * ROW, BK * ROW, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      mbar_arrive(bar_empty + 8 * s);
+    }
+
+    // ---- epilogue ---------------------------------------------------------
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+    // Stage O in this warpgroup's own rows of the Q tile (their only reader,
+    // this warpgroup's products, has finished), in the swizzled slab layout
+    // the output tensor map stores from.
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 64 * w + row0 + 8 * r;
+        const uint32_t off = (jn / 8) * BQ * ROW + row * ROW + (((jn % 8) ^ (row % 8)) * 16) +
+                             (lane % 4) * 4;
+        *reinterpret_cast<uint32_t*>(smem + off) =
+            pack_bf16(o[4 * jn + 2 * r] * inv[r], o[4 * jn + 2 * r + 1] * inv[r]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < SM::SLABS; ++c)
+        tma_store(&tm_o, sQ + c * BQ * ROW + 64 * w * ROW, 64 * c, h, qw0, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = qw0 + row0 + 8 * r;
+        if (row < Sq) lse[((long)b * Hq + h) * Sq + row] = m[r] * LN2 + logf(l[r]);
+      }
     }
   }
-  if (lse != nullptr) {
-    for (int r = threadIdx.x; r < BQ; r += NTHREADS)
-      if (q0 + r < Sq)
-        lse[((long)b * Hq + h) * Sq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+}
+
+// cuTensorMapEncodeTiled lives in libcuda: it is looked up at run time, so
+// this library needs no link against libcuda and builds with plain nvcc.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
   }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 [B, S, H, D] tensor, boxes of 64 columns x
+// `rows` rows of one head, 128-byte swizzle. Rows past S read as zero and are
+// never written.
+bool make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+              int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
            int Skv, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!make_map(encode, &tm_q, q, B, Sq, Hq, D, BQ) ||
+      !make_map(encode, &tm_k, k, B, Skv, Hkv, D, BK) ||
+      !make_map(encode, &tm_v, v, B, Skv, Hkv, D, BK) ||
+      !make_map(encode, &tm_o, out, B, Sq, Hq, D, 64))
+    return (int)cudaErrorInvalidValue;
   auto kern = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<D>::bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, NTHREADS, Smem<D>::bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, scale);
+  dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
+  kern<<<grid, NTHREADS, Smem<D>::bytes, stream>>>(tm_q, tm_k, tm_v, tm_o,
+                                                   static_cast<float*>(lse), Sq, Skv, Hq, Hkv,
+                                                   causal, scale);
   return (int)cudaGetLastError();
 }
 

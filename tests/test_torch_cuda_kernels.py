@@ -51,6 +51,14 @@ def _bf16(shape, g, dev):
     (1, 1, 65, 4, 4, 64, True),       # one query row
     (2, 100, 70, 4, 2, 64, False),    # non-causal, Sq > Skv
     (1, 256, 256, 8, 8, 128, False),
+    # the 128-row q tile and 128-key K/V tile of the kernel
+    (1, 129, 129, 8, 2, 128, True),   # one row past a q tile
+    (1, 255, 255, 4, 1, 64, True),    # one row short of two tiles
+    (1, 255, 255, 8, 2, 128, False),
+    (3, 200, 200, 8, 2, 128, True),   # a map that ignored the batch would read the next one
+    (3, 200, 200, 4, 2, 64, False),
+    (1, 1, 2048, 16, 4, 128, True),   # the diagonal tile alone
+    (2, 300, 700, 16, 4, 128, True),  # offset 400: not a tile multiple
 ])
 def test_flash_fwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
     g = torch.Generator(device=dev).manual_seed(b * 1000 + sq + skv)
@@ -69,6 +77,19 @@ def test_flash_fwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
         mask = (torch.arange(sq, device=dev)[:, None] + skv - sq) >= torch.arange(skv, device=dev)
         logits = logits.masked_fill(~mask, float("-inf"))
     torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_is_deterministic(dev, d):
+    """Two launches on the same inputs give bitwise-equal out and lse: the
+    kernel sums in a fixed order, with no atomics."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = _bf16((2, 300, 8, d), g, dev), _bf16((2, 700, 2, d), g, dev), \
+        _bf16((2, 700, 2, d), g, dev)
+    runs = [ta.flash_attention_lse(q, k, v, causal=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 def test_flash_fwd_rejects_what_it_does_not_take(dev):
