@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` is compiled at first use, each by its own ``nvcc`` and
 all of them started together, into a shared library with a plain C
 interface under ``build/kernels/`` (listed in ``.gitignore``), and loaded
-with ``ctypes``. A library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one is never loaded. Nothing is
-compiled when the package is imported.
+with ``ctypes``. A library's file name carries a hash of its source and of
+every ``csrc/*.cuh`` header, so an edited kernel or header is rebuilt and a
+stale library is never loaded. Nothing is compiled when the package is
+imported.
 
 Each launching wrapper adds one to ``launch_counts[<kernel>]`` right where it
 launches, and nowhere else, so a run can show that its path went through
@@ -52,8 +53,14 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """The library built from ``src``: its name hashes the source, every
+    ``csrc/*.cuh`` header (any source may include any of them) and the
+    compiler flags, so an edit to any of them builds a new library."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:

@@ -4,7 +4,7 @@
 // Replaces: ray_tpu/ops/attention.py:_flash_bwd_dq_kernel (K2) and
 // _flash_bwd_dkv_kernel (K3), both launched through _flash_bwd -> pl.pallas_call.
 //
-// What they compute, from the forward's residuals (q, k, v, out, lse) and the
+// What they compute, from the forward's residuals (q, k, v, lse) and the
 // output gradient dO, with delta[b, h, i] = sum_d dO[b, i, h, d] * out[b, i, h, d]
 // computed outside (fp32, as the JAX package does):
 //   s  = scale * q_i . k_j over the keys j that row i may see (j < Skv, and
@@ -22,349 +22,509 @@
 // heads, D 128, causal) each S x S x D product over the visible half is 68.7
 // GFLOP; K2 does 3 of them (s, dp, dq) and K3 does 4 (s, dp, dv, dk), so 0.21
 // and 0.28 ms at 989 TFLOP/s, against 0.24 GB and 0.20 GB of inputs and
-// outputs (0.07 and 0.06 ms at 3.35 TB/s): both are bound by operations. The
-// design therefore keeps the S x S matrices out of device memory (p and ds are
-// rebuilt tile by tile from lse, as in the forward) and feeds the tensor cores
-// bf16 tiles through warp-level WMMA 16x16x16 products with fp32 accumulators
-// held in registers for the whole loop. Tiles that the causal mask hides
-// entirely are skipped through the loop bounds. K3 runs one block per kv head
-// and loops over the 4 q heads of its group itself, so the GQA sum happens in
-// its registers: no atomics, a fixed order, and no fp32 per-q-head scratch in
-// device memory. Not yet done: wgmma, TMA and a pipelined tile ring (the loads
-// here are synchronous), so both kernels are far from their bound.
+// outputs (0.07 and 0.06 ms at 3.35 TB/s): both are bound by the tensor
+// cores. Both kernels therefore follow the forward's design (flash_fwd.cu:
+// a TMA ring, wgmma, every S x S intermediate in registers), with the
+// primitives of sm90.cuh:
+//
+// - 256 threads: two consumer warpgroups (wgmma needs whole, aligned
+//   warpgroups), each owning 64 rows of the block's 128-row tile, and no
+//   producer warp. Registers decide that: a warpgroup keeps its 64 x D fp32
+//   accumulators for the whole loop (K2 dQ, K3 dK and dV) beside a step's
+//   fp32 S and dP (K2: 64 x 128 each; K3's transposes: 64 x 64 each), 192
+//   accumulator registers a thread, about 230 in all. ptxas (nvcc 12.9,
+//   sm_90a) gives these kernels 168 at __launch_bounds__(288, 1) as at
+//   (384, 1), as if the block were rounded up to whole warpgroups, and
+//   allocates the consumer code at 168 whatever setmaxnreg grants (it emits
+//   the instruction, but the consumer spills), so a producer warp or
+//   warpgroup costs 60 registers of every thread. At 256 threads each may
+//   have 255. Thread 0
+//   is the producer as well as a consumer: it issues the block's resident
+//   tiles and the first STAGES slots, and refills each slot once both
+//   warpgroups have released it, STAGES - 1 slots ahead of the math.
+// - Operands stream through an mbarrier-guarded ring of STAGES slots filled
+//   by TMA over 4-D tensor maps of [B, S, H, D] with 128-byte swizzle; every
+//   mbarrier wait traps after a bounded number of polls, so a lost arrival
+//   fails the launch instead of hanging the card.
+// - Every product is a wgmma; the first two of a step (S and dP, or their
+//   transposes) take both operands from shared memory, and the one or two
+//   that follow take p or ds as the register A operand, packed pairwise to
+//   bf16 in place from the fp32 accumulator. No S x S tile ever goes to
+//   shared memory. p = exp2(s * scale * log2 e - lse * log2 e) on the
+//   special-function unit.
+// - TMA zero-fills rows past a batch's end, which makes s = 0, not a masked
+//   score, so rows past Sq (K3) and keys past Skv (K2) are masked explicitly
+//   on the tiles that reach them.
+// - The epilogue stages the bf16 result in the warpgroup's own rows of a tile
+//   it no longer reads and writes it by TMA store, which clips rows past the
+//   end.
+//
+// K2 (dQ): one block per (b, q head, 128-row q tile); grid (Hq, B, q tiles),
+// so the q heads of one kv head are neighbours in launch order (their K/V
+// reads meet in L2), and the widest causal q tiles go first. Q and dO are
+// loaded once, and each thread's two rows of lse and delta read into
+// registers; K and V tiles of 128 keys go through the ring, each slot with
+// its own K and V barriers. dQ += dS . K reads K as an MN-major B.
+//
+// K3 (dK/dV): one block per (b, kv head, 128-key tile); grid (Hkv, B, key
+// tiles), so the widest causal key tiles of every (b, kv head) go first and
+// the last wave holds the narrowest. K and V are loaded once. The ring
+// streams, for each of the group's 4 q heads and each 64-row q tile from the
+// first one that sees the block's keys, the Q and dO tiles and that tile's
+// lse and delta rows, the last two by 1-D TMA boxes that start at the
+// 16-byte boundary at or before the tile's first row (a row of ragged Sq
+// starts anywhere). S^T = K . Q^T and dP^T = V . dO^T put keys on the
+// accumulator's rows and queries on its columns, so each thread reads the
+// lse and delta of its 16 columns from the slot. dV += P^T . dO and dK +=
+// dS^T . Q read dO and Q as MN-major B. The GQA sum over the group happens in
+// these registers: no atomics, a fixed order, bitwise-repeatable.
+//
+// Not done: a persistent grid, overlap of one tile's exponentials with
+// another tile's products inside a warpgroup, and ping-pong scheduling.
 //
 // Layout: q/dO/dq [B, Sq, Hq, D], k/v/dk/dv [B, Skv, Hkv, D], all contiguous
-// bf16; lse and delta [B, Hq, Sq] fp32. Built for D 128 with 4 q heads per kv
-// head only (every configuration on the training path); anything else is
-// refused. Ragged edges (S not a tile multiple, Sq < Skv) are masked here.
-// K2: grid (ceil(Sq/64), Hq, B); K3: grid (ceil(Skv/64), Hkv, B); 128 threads,
-// 4 warps, each warp owning 16 rows of the block's 64-row tile.
+// bf16 and 16-byte aligned; lse and delta [B, Hq, Sq] fp32, contiguous and
+// 16-byte aligned. Built for D 128 with 4 q heads per kv head only (every
+// configuration on the training path); anything else is refused.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int D = 128;
-constexpr int GROUP = 4;  // q heads per kv head
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int NFRAG = D / 16;  // 16-column accumulator fragments across D
+constexpr int GROUP = 4;        // q heads per kv head
+constexpr int SLABS = D / 64;   // 64-column slabs per tile row
+constexpr int STAGES = 2;       // ring depth
+constexpr int NTHREADS = 256;   // two consumer warpgroups; thread 0 also issues the loads
 
-// Row pitches, padded against bank conflicts; every WMMA tile pointer stays
-// 32-byte aligned.
-constexpr int LDH = D + 8;   // bf16 tiles of q, dO, k, v
-constexpr int LDS = 64 + 4;  // fp32 64 x 64 score tiles (s, dp)
-constexpr int LDP = 64 + 8;  // bf16 64 x 64 tiles (p, ds)
-constexpr int LDO = D + 4;   // fp32 64 x D staging of a result for its store
-
-constexpr size_t TILE_H = sizeof(bf16) * 64 * LDH;
-constexpr size_t TILE_S = sizeof(float) * 64 * LDS;
-constexpr size_t TILE_P = sizeof(bf16) * 64 * LDP;
-static_assert(sizeof(float) * 64 * LDO <= 2 * TILE_S, "result staging must fit in s + dp");
-static_assert(sizeof(float) * 64 * LDO <= 2 * TILE_H, "result staging must fit in two tiles");
-
-// Shared memory of K2 (dQ): q, dO, k, v tiles; s and dp; ds; lse and delta.
-struct SmemDq {
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + TILE_H;
-  static constexpr size_t k_off = do_off + TILE_H;
-  static constexpr size_t v_off = k_off + TILE_H;
-  static constexpr size_t s_off = v_off + TILE_H;
-  static constexpr size_t dp_off = s_off + TILE_S;
-  static constexpr size_t ds_off = dp_off + TILE_S;
-  static constexpr size_t row_off = ds_off + TILE_P;
-  static constexpr size_t bytes = row_off + sizeof(float) * 2 * BQ;
-};
-
-// Shared memory of K3 (dK/dV): k, v, q, dO tiles; s^T and dp^T; p^T and ds^T;
-// lse and delta of the current q tile.
-struct SmemDkv {
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + TILE_H;
-  static constexpr size_t q_off = v_off + TILE_H;
-  static constexpr size_t do_off = q_off + TILE_H;
-  static constexpr size_t s_off = do_off + TILE_H;
-  static constexpr size_t dp_off = s_off + TILE_S;
-  static constexpr size_t p_off = dp_off + TILE_S;
-  static constexpr size_t ds_off = p_off + TILE_P;
-  static constexpr size_t row_off = ds_off + TILE_P;
-  static constexpr size_t bytes = row_off + sizeof(float) * 2 * BQ;
-};
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-
-// A 64-row tile of one head into shared memory (row pitch LDH); rows at or
-// past rows_valid are zero-filled. 16-byte loads, neighbouring threads on
-// neighbouring addresses.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows_valid,
-                                          long row_stride) {
-  constexpr int VPR = D / 8;  // 16-byte pieces per row
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const uint4 val = r < rows_valid
-                          ? *reinterpret_cast<const uint4*>(src + (long)r * row_stride + c)
-                          : make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-// out[16 x 64] (fp32, pitch LDS) = A[16 x D] . B^T where B is a 64 x D tile
-// stored row-major (so B^T is read column-major): q.k^T, dO.v^T and their
-// transposes k.q^T, v.dO^T.
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a, const bf16* b) {
-  Acc acc[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LDH);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], LDS, wmma::mem_row_major);
-}
-
-// acc[16 x D] += A[16 x 64] (bf16, pitch LDP) . B[64 x D] (bf16 tile, row-major).
-__device__ __forceinline__ void accumulate_rows(Acc (&acc)[NFRAG], const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LDP);
-#pragma unroll
-    for (int n = 0; n < NFRAG; ++n) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * LDH + n * 16, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// Stage a warp's 16 x D accumulator rows in shared memory (pitch LDO).
-__device__ __forceinline__ void stage_rows(float* dst, const Acc (&acc)[NFRAG]) {
-#pragma unroll
-  for (int n = 0; n < NFRAG; ++n)
-    wmma::store_matrix_sync(dst + n * 16, acc[n], LDO, wmma::mem_row_major);
-}
-
-// Write a staged 64 x D fp32 tile as bf16 rows [0, rows_valid) of dst.
-__device__ __forceinline__ void write_rows(bf16* dst, const float* staged, int rows_valid,
-                                           long row_stride) {
-  for (int i = threadIdx.x; i < 64 * D / 2; i += NTHREADS) {
-    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    if (r < rows_valid)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long)r * row_stride + c) =
-          __floats2bfloat162_rn(staged[r * LDO + c], staged[r * LDO + c + 1]);
-  }
-}
+// Bytes of a tile of `rows` rows (D / 64 slabs of rows x 128 bytes).
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) { return rows * D * 2; }
 
 // ---------------------------------------------------------------- K2: dQ ---
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int causal,
-                    float scale) {
-  using SM = SmemDq;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + SM::q_off);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + SM::do_off);
-  bf16* sK = reinterpret_cast<bf16*>(smem + SM::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + SM::v_off);
-  float* sS = reinterpret_cast<float*>(smem + SM::s_off);
-  float* sDP = reinterpret_cast<float*>(smem + SM::dp_off);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + SM::ds_off);
-  float* sLse = reinterpret_cast<float*>(smem + SM::row_off);
-  float* sDelta = sLse + BQ;
+namespace k2 {
+constexpr int BQ = 128;  // query rows per block
+constexpr int BK = 128;  // keys per K/V tile
+// Shared-memory plan; every tile starts on a 1024-byte boundary.
+constexpr uint32_t q_off = 0;
+constexpr uint32_t do_off = q_off + tile_bytes(BQ);
+constexpr uint32_t k_off = do_off + tile_bytes(BQ);
+constexpr uint32_t v_off = k_off + STAGES * tile_bytes(BK);
+constexpr uint32_t bar_off = v_off + STAGES * tile_bytes(BK);
+// barriers: Q and dO, then full_k, full_v and empty for each slot
+constexpr uint32_t bytes = bar_off + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+}  // namespace k2
 
-  // The last q tiles see the most keys: hand them out first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// Fill K2's ring slot s with the K and V tiles of keys k0 .. k0 + BK - 1, each
+// on its own barrier, so S = Q.K^T can start before V has landed.
+__device__ __forceinline__ void k2_load_kv(uint32_t base, int s, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, int hk, int k0, int b) {
+  using namespace k2;
+  const uint32_t bar_full_k = base + bar_off + 8 + 8 * s;
+  const uint32_t bar_full_v = base + bar_off + 8 + 8 * STAGES + 8 * s;
+  const uint32_t sK = base + k_off + s * tile_bytes(BK);
+  const uint32_t sV = base + v_off + s * tile_bytes(BK);
+  mbar_expect_tx(bar_full_k, tile_bytes(BK));
+#pragma unroll
+  for (int c = 0; c < SLABS; ++c)
+    tma_load(sK + c * BK * ROW, tm_k, bar_full_k, 64 * c, hk, k0, b);
+  mbar_expect_tx(bar_full_v, tile_bytes(BK));
+#pragma unroll
+  for (int c = 0; c < SLABS; ++c)
+    tma_load(sV + c * BK * ROW, tm_v, bar_full_v, 64 * c, hk, k0, b);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int Sq, int Skv, int Hq, int causal,
+                    float scale) {
+  using namespace k2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base + q_off;
+  const uint32_t sDO = base + do_off;
+  const uint32_t bar_q = base + bar_off;
+  const uint32_t bar_full_k = bar_q + 8;                // + 8 s
+  const uint32_t bar_full_v = bar_full_k + 8 * STAGES;  // + 8 s
+  const uint32_t bar_empty = bar_full_v + 8 * STAGES;   // + 8 s
+
+  const int h = blockIdx.x;  // the q heads of one kv head are neighbours in launch order
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the widest causal q tiles first
   const int hk = h / GROUP;
   const int offset = Skv - Sq;  // query row i sits at absolute position offset + i
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q_rows = min(BQ, Sq - q0);
-
-  const long q_rs = (long)Hq * D;
-  const long kv_rs = (long)Hkv * D;
-  const long q_base = ((long)b * Sq + q0) * q_rs + (long)h * D;
-  const bf16* kb = k + (long)b * Skv * kv_rs + (long)hk * D;
-  const bf16* vb = v + (long)b * Skv * kv_rs + (long)hk * D;
-  const long row_base = ((long)b * Hq + h) * Sq + q0;
-
-  load_tile(sQ, q + q_base, q_rows, q_rs);
-  load_tile(sDO, dout + q_base, q_rows, q_rs);
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-    sLse[r] = r < q_rows ? lse[row_base + r] : 0.f;
-    sDelta[r] = r < q_rows ? delta[row_base + r] : 0.f;
-  }
-
-  Acc acc[NFRAG];
-#pragma unroll
-  for (int n = 0; n < NFRAG; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  // Block-level causal skip (the JAX loop bound): no row of this tile sees a
-  // key at or past kv_end.
+  // Block-level causal skip: no row of this tile sees a key at or past kv_end.
   const int kv_end = causal ? min(Skv, q0 + BQ + offset) : Skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
-  const int wr = warp * 16;  // this warp's first row in the tile
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, kb + (long)k0 * kv_rs, min(BK, Skv - k0), kv_rs);
-    load_tile(sV, vb + (long)k0 * kv_rs, min(BK, Skv - k0), kv_rs);
-    __syncthreads();
-
-    rows_times_tile_t(sS + wr * LDS, sQ + wr * LDH, sK);    // s  (unscaled)
-    rows_times_tile_t(sDP + wr * LDS, sDO + wr * LDH, sV);  // dp
-    __syncwarp();
-
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wr + rr;
-      const int qpos = q0 + r + offset;
-      const float l = sLse[r], dl = sDelta[r];
-#pragma unroll
-      for (int c = 0; c < BK / 32; ++c) {
-        const int col = lane + c * 32;
-        const int kpos = k0 + col;
-        const bool ok = kpos < Skv && (!causal || kpos <= qpos);
-        const float p = ok ? expf(sS[r * LDS + col] * scale - l) : 0.f;
-        sDS[r * LDP + col] = __float2bfloat16(p * (sDP[r * LDS + col] - dl) * scale);
-      }
+  // Thread 0 is the producer as well as a consumer: it issues Q, dO and the
+  // first STAGES K/V slots here, and each later slot once every consumer has
+  // released it (below).
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full_k + 8 * s, 1);
+      mbar_init(bar_full_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NTHREADS);  // every consumer thread releases the slot
     }
-    __syncwarp();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, 2 * tile_bytes(BQ));
+#pragma unroll
+    for (int c = 0; c < SLABS; ++c) {
+      tma_load(sQ + c * BQ * ROW, &tm_q, bar_q, 64 * c, h, q0, b);
+      tma_load(sDO + c * BQ * ROW, &tm_do, bar_q, 64 * c, h, q0, b);
+    }
+    for (int j = 0; j < min(STAGES, n_tiles); ++j)
+      k2_load_kv(base, j, &tm_k, &tm_v, hk, j * BK, b);
+  }
+  __syncthreads();
 
-    accumulate_rows(acc, sDS + wr * LDP, sK);  // dq += ds . K
+  // ---- warpgroup w owns query rows q0 + 64 w .. + 63 --------------------
+  const int w = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int row0 = 16 * (t / 32) + lane / 4;  // this thread's rows: row0 and row0 + 8
+  const int qw0 = q0 + 64 * w;
+  const int lim0 = qw0 + row0 + offset;       // the last key each row may see (causal)
+  const int lim1 = lim0 + 8;
+  const float sl2 = scale * LOG2E;            // scale after the dot, in fp32; exp2 domain
+  // Tiles past the last key any of this warpgroup's rows sees, and every tile
+  // of a warpgroup whose rows all lie past Sq, are released unread.
+  const bool active = qw0 < Sq;
+  const int wg_tiles = causal ? (min(Skv, qw0 + 64 + offset) + BK - 1) / BK : n_tiles;
+
+  // This thread's two rows' lse (exp2 domain) and delta; 0 past Sq.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw0 + row0 + 8 * r;
+    const long at = ((long)b * Hq + h) * Sq + row;
+    lse2[r] = row < Sq ? lse[at] * LOG2E : 0.f;
+    dlt[r] = row < Sq ? delta[at] : 0.f;
   }
 
-  __syncthreads();  // the s/dp region now stages the result
-  float* staged = sS;
-  stage_rows(staged + wr * LDO, acc);
-  __syncthreads();
-  write_rows(dq + q_base, staged, q_rows, q_rs);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    const uint32_t sK = base + k_off + s * tile_bytes(BK);
+    const uint32_t sV = base + v_off + s * tile_bytes(BK);
+    const int k0 = j * BK;
+    mbar_wait(bar_full_k + 8 * s, parity);
+    if (active && j < wg_tiles) {
+      // S = Q . K^T and dP = dO . V^T: D / 16 products of depth 16 each
+      float sc[BK / 2], dp[BK / 2];
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32u;  // 16 bf16 into the slab row
+        wgmma_ss_n128(sc, smem_desc(sQ + (kk / 4) * BQ * ROW + 64 * w * ROW + step, 16, 1024),
+                     smem_desc(sK + (kk / 4) * BK * ROW + step, 16, 1024), kk > 0);
+      }
+      mbar_wait(bar_full_v + 8 * s, parity);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32u;
+        wgmma_ss_n128(dp, smem_desc(sDO + (kk / 4) * BQ * ROW + 64 * w * ROW + step, 16, 1024),
+                     smem_desc(sV + (kk / 4) * BK * ROW + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // Mask only the tiles that cross the causal diagonal or the ragged end.
+      if (k0 + BK > Skv || (causal && k0 + BK - 1 > qw0 + offset)) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          if (key >= Skv || (causal && key > ((i & 2) ? lim1 : lim0))) sc[i] = -INFINITY;
+        }
+      }
+      // p and ds on registers; ds packed pairwise into bf16 A fragments: k step
+      // kt takes key columns 16 kt .. 16 kt + 15, accumulator elements 8 kt ..
+      // 8 kt + 7.
+      uint32_t a[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const int r = (i >> 1) & 1;
+        const float p0 = exp2_approx(fmaf(sc[i], sl2, -lse2[r]));
+        const float p1 = exp2_approx(fmaf(sc[i + 1], sl2, -lse2[r]));
+        a[i / 8][(i % 8) / 2] =
+            pack_bf16(p0 * (dp[i] - dlt[r]) * scale, p1 * (dp[i + 1] - dlt[r]) * scale);
+      }
+
+      // dQ += dS . K: K [keys, D] is the MN-major B operand, 16 keys per step
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+        wgmma_rs_n128(acc, a[kt], smem_desc(sK + kt * 16 * ROW, BK * ROW, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    } else {
+      mbar_wait(bar_full_v + 8 * s, parity);  // a slot is released once both loads landed
+    }
+    mbar_arrive(bar_empty + 8 * s);
+    // Thread 0 refills the slot once both warpgroups have released it.
+    const int next = j + STAGES;
+    if (threadIdx.x == 0 && next < n_tiles) {
+      mbar_wait(bar_empty + 8 * s, parity);
+      k2_load_kv(base, s, &tm_k, &tm_v, hk, next * BK, b);
+    }
+    __syncwarp();  // warp 0 meets again before its next wgmma
+  }
+
+  // ---- epilogue: dQ through this warpgroup's own rows of the Q tile ------
+  if (!active) return;
+  const float one[2] = {1.f, 1.f};
+  stage_bf16<D>(smem + q_off, BQ * ROW, 64 * w, acc, one);
+  warpgroup_sync_for_tma(w);
+  if (t == 0) {
+#pragma unroll
+    for (int c = 0; c < SLABS; ++c)
+      tma_store(&tm_dq, sQ + c * BQ * ROW + 64 * w * ROW, 64 * c, h, qw0, b);
+    tma_store_wait();
+  }
 }
 
 // ------------------------------------------------------------- K3: dK/dV ---
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq,
-                     int Hkv, int causal, float scale) {
-  using SM = SmemDkv;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + SM::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + SM::v_off);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + SM::q_off);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + SM::do_off);
-  float* sS = reinterpret_cast<float*>(smem + SM::s_off);    // s^T: [key][query]
-  float* sDP = reinterpret_cast<float*>(smem + SM::dp_off);  // dp^T
-  bf16* sP = reinterpret_cast<bf16*>(smem + SM::p_off);      // p^T
-  bf16* sDS = reinterpret_cast<bf16*>(smem + SM::ds_off);    // ds^T
-  float* sLse = reinterpret_cast<float*>(smem + SM::row_off);
-  float* sDelta = sLse + BQ;
+namespace k3 {
+constexpr int BK = 128;  // keys per block
+constexpr int BQ = 64;   // query rows per ring slot
+constexpr uint32_t k_off = 0;
+constexpr uint32_t v_off = k_off + tile_bytes(BK);
+constexpr uint32_t q_off = v_off + tile_bytes(BK);            // + s * tile_bytes(BQ)
+constexpr uint32_t do_off = q_off + STAGES * tile_bytes(BQ);  // + s * tile_bytes(BQ)
+// per slot: ROW_BOX floats of lse, then (at + 512 bytes) ROW_BOX of delta. A
+// TMA box starts on a 16-byte boundary, so a slot's rows q0 .. q0 + 63 start
+// 0-3 floats into its box.
+constexpr int ROW_BOX = BQ + 4;
+constexpr uint32_t row_off = do_off + STAGES * tile_bytes(BQ);
+constexpr uint32_t row_bytes = 1024;
+constexpr uint32_t bar_off = row_off + STAGES * row_bytes;
+// barriers: K and V, then full and empty for each slot
+constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+}  // namespace k3
 
-  const int k0 = blockIdx.x * BK;  // the first k tiles see the most queries
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int offset = Skv - Sq;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int k_rows = min(BK, Skv - k0);
+// The flat index of row q0 of q head h in the [B, Hq, Sq] lse and delta.
+__device__ __forceinline__ int k3_row(int b, int h, int q0, int Hq, int Sq) {
+  return (b * Hq + h) * Sq + q0;
+}
 
-  const long q_rs = (long)Hq * D;
-  const long kv_rs = (long)Hkv * D;
-  const long kv_base = ((long)b * Skv + k0) * kv_rs + (long)hk * D;
-
-  load_tile(sK, k + kv_base, k_rows, kv_rs);
-  load_tile(sV, v + kv_base, k_rows, kv_rs);
-
-  Acc dk_acc[NFRAG], dv_acc[NFRAG];
+// Fill K3's ring slot s with one q tile: the Q and dO tiles and the lse and
+// delta rows of q head h, rows q0 .. q0 + 63, all on the slot's one barrier.
+// The lse and delta boxes start at the 16-byte boundary at or before row q0.
+// Rows past Sq belong to the next head (or read as zero past the array's
+// end): finite, and masked like the zero rows of Q and dO.
+__device__ __forceinline__ void k3_load_slot(uint32_t base, int s, const CUtensorMap* tm_q,
+                                             const CUtensorMap* tm_do,
+                                             const CUtensorMap* tm_lse,
+                                             const CUtensorMap* tm_delta, int h, int q0, int b,
+                                             int Hq, int Sq) {
+  using namespace k3;
+  const uint32_t bar = base + bar_off + 8 + 8 * s;
+  const uint32_t sQ = base + q_off + s * tile_bytes(BQ);
+  const uint32_t sDO = base + do_off + s * tile_bytes(BQ);
+  const uint32_t sRows = base + row_off + s * row_bytes;
+  mbar_expect_tx(bar, 2 * tile_bytes(BQ) + 2 * ROW_BOX * 4);
 #pragma unroll
-  for (int n = 0; n < NFRAG; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
+  for (int c = 0; c < SLABS; ++c) {
+    tma_load(sQ + c * BQ * ROW, tm_q, bar, 64 * c, h, q0, b);
+    tma_load(sDO + c * BQ * ROW, tm_do, bar, 64 * c, h, q0, b);
   }
+  const int start = k3_row(b, h, q0, Hq, Sq) & ~3;
+  tma_load_1d(sRows, tm_lse, bar, start);
+  tma_load_1d(sRows + row_bytes / 2, tm_delta, bar, start);
+}
 
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_dk,
+                     const __grid_constant__ CUtensorMap tm_dv,
+                     const __grid_constant__ CUtensorMap tm_lse,
+                     const __grid_constant__ CUtensorMap tm_delta, int Sq, int Skv, int Hq,
+                     int causal, float scale) {
+  using namespace k3;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sK = base + k_off;
+  const uint32_t sV = base + v_off;
+  const float* rows = reinterpret_cast<const float*>(smem + row_off);  // + s * row_bytes / 4
+  const uint32_t bar_kv = base + bar_off;
+  const uint32_t bar_full = bar_kv + 8;              // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * STAGES;  // + 8 s
+
+  // The widest causal key tiles of every (b, kv head) go first: the key tile
+  // is the slowest grid dimension, so the last wave holds the narrowest tiles.
+  const int k0 = blockIdx.z * BK;
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int offset = Skv - Sq;
   // First q tile whose last row (absolute position offset + i) can see key
   // k0: i >= k0 - offset (the JAX kernel's `first`, floored at 0).
   const int first = causal && k0 > offset ? (k0 - offset) / BQ : 0;
-  const int n_q_tiles = (Sq + BQ - 1) / BQ;
-  const int wr = warp * 16;  // this warp's first key row in the tile
+  const int per_head = (Sq + BQ - 1) / BQ - first;
+  const int n_iters = GROUP * per_head;  // the ring runs on across head boundaries
 
-  for (int g = 0; g < GROUP; ++g) {
-    const int h = hk * GROUP + g;
-    const bf16* qh = q + (long)b * Sq * q_rs + (long)h * D;
-    const bf16* doh = dout + (long)b * Sq * q_rs + (long)h * D;
-    const float* lse_h = lse + ((long)b * Hq + h) * Sq;
-    const float* delta_h = delta + ((long)b * Hq + h) * Sq;
-    for (int i = first; i < n_q_tiles; ++i) {
-      const int q0 = i * BQ;
-      const int q_rows = min(BQ, Sq - q0);
-      __syncthreads();  // every warp is done with the previous q tile
-      load_tile(sQ, qh + (long)q0 * q_rs, q_rows, q_rs);
-      load_tile(sDO, doh + (long)q0 * q_rs, q_rows, q_rs);
-      for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-        sLse[r] = r < q_rows ? lse_h[q0 + r] : 0.f;
-        sDelta[r] = r < q_rows ? delta_h[q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      rows_times_tile_t(sS + wr * LDS, sK + wr * LDH, sQ);    // s^T  (unscaled)
-      rows_times_tile_t(sDP + wr * LDS, sV + wr * LDH, sDO);  // dp^T
-      __syncwarp();
-
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = wr + rr;  // key row in the tile
-        const int kpos = k0 + r;
+  // Thread 0 is the producer as well as a consumer: it issues K, V and the
+  // first STAGES slots here, and each later slot once every consumer has
+  // released it (below).
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NTHREADS);  // every consumer thread releases the slot
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_kv, 2 * tile_bytes(BK));
 #pragma unroll
-        for (int c = 0; c < BQ / 32; ++c) {
-          const int col = lane + c * 32;  // query row in the tile
-          const bool ok = col < q_rows && kpos < Skv && (!causal || kpos <= q0 + col + offset);
-          const float p = ok ? expf(sS[r * LDS + col] * scale - sLse[col]) : 0.f;
-          sP[r * LDP + col] = __float2bfloat16(p);
-          sDS[r * LDP + col] = __float2bfloat16(p * (sDP[r * LDS + col] - sDelta[col]) * scale);
+    for (int c = 0; c < SLABS; ++c) {
+      tma_load(sK + c * BK * ROW, &tm_k, bar_kv, 64 * c, hk, k0, b);
+      tma_load(sV + c * BK * ROW, &tm_v, bar_kv, 64 * c, hk, k0, b);
+    }
+    for (int it = 0; it < min(STAGES, n_iters); ++it)
+      k3_load_slot(base, it, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * GROUP + it / per_head,
+                   (first + it % per_head) * BQ, b, Hq, Sq);
+  }
+  __syncthreads();
+
+  // ---- warpgroup w owns keys k0 + 64 w .. + 63 ---------------------------
+  const int w = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int kw0 = k0 + 64 * w;
+  const int key0 = kw0 + 16 * (t / 32) + lane / 4;  // this thread's keys: key0 and key0 + 8
+  const float sl2 = scale * LOG2E;
+  // A warpgroup whose keys all lie past Skv has no rows to write: it only
+  // releases the slots.
+  const bool active = kw0 < Skv;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_iters; ++it) {
+    const int h = hk * GROUP + it / per_head;
+    const int q0 = (first + it % per_head) * BQ;
+    const int s = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    const uint32_t sQ = base + q_off + s * tile_bytes(BQ);
+    const uint32_t sDO = base + do_off + s * tile_bytes(BQ);
+    mbar_wait(bar_full + 8 * s, parity);
+    // A q tile whose last row sees none of this warpgroup's keys is skipped.
+    if (active && !(causal && q0 + BQ - 1 + offset < kw0)) {
+      // S^T = K . Q^T and dP^T = V . dO^T: keys on the rows, queries on the columns
+      float st[BQ / 2], dpt[BQ / 2];
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32u;
+        wgmma_ss_n64(st, smem_desc(sK + (kk / 4) * BK * ROW + 64 * w * ROW + step, 16, 1024),
+                     smem_desc(sQ + (kk / 4) * BQ * ROW + step, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32u;
+        wgmma_ss_n64(dpt, smem_desc(sV + (kk / 4) * BK * ROW + 64 * w * ROW + step, 16, 1024),
+                     smem_desc(sDO + (kk / 4) * BQ * ROW + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // Mask only the tiles that reach past Sq or cross the causal diagonal:
+      // column (query) q sees key k when q < Sq and k <= q + offset.
+      if (q0 + BQ > Sq || (causal && kw0 + 63 > q0 + offset)) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int q = q0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          const int key = (i & 2) ? key0 + 8 : key0;
+          if (q >= Sq || (causal && key > q + offset)) st[i] = -INFINITY;
         }
       }
-      __syncwarp();
+      // p^T and ds^T on registers, each packed pairwise into bf16 A fragments.
+      // Element pair i, i + 1 holds columns 8 (i / 4) + 2 (lane % 4) + {0, 1}.
+      const float* lse_s = rows + s * (row_bytes / 4) + (k3_row(b, h, q0, Hq, Sq) & 3);
+      const float* delta_s = lse_s + row_bytes / 8;
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; i += 2) {
+        const int col = 8 * (i / 4) + 2 * (lane % 4);
+        const float p0 = exp2_approx(fmaf(st[i], sl2, -lse_s[col] * LOG2E));
+        const float p1 = exp2_approx(fmaf(st[i + 1], sl2, -lse_s[col + 1] * LOG2E));
+        pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+        da[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dpt[i] - delta_s[col]) * scale,
+                                           p1 * (dpt[i + 1] - delta_s[col + 1]) * scale);
+      }
 
-      accumulate_rows(dv_acc, sP + wr * LDP, sDO);  // dv += p^T . dO
-      accumulate_rows(dk_acc, sDS + wr * LDP, sQ);  // dk += ds^T . Q
+      // dV += P^T . dO and dK += dS^T . Q: dO and Q [q rows, D] are MN-major B
+      // operands, 16 q rows per step
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < BQ / 16; ++kt)
+        wgmma_rs_n128(dv, pa[kt], smem_desc(sDO + kt * 16 * ROW, BQ * ROW, 1024));
+#pragma unroll
+      for (int kt = 0; kt < BQ / 16; ++kt)
+        wgmma_rs_n128(dk, da[kt], smem_desc(sQ + kt * 16 * ROW, BQ * ROW, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
     }
+    mbar_arrive(bar_empty + 8 * s);
+    // Thread 0 refills the slot once both warpgroups have released it. It
+    // lies in warpgroup 0, whose keys come first: on the causal diagonal
+    // warpgroup 1 skips at least the tiles warpgroup 0 skips, so the wait is
+    // mostly for work that is already done.
+    const int next = it + STAGES;
+    if (threadIdx.x == 0 && next < n_iters) {
+      mbar_wait(bar_empty + 8 * s, parity);
+      k3_load_slot(base, s, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * GROUP + next / per_head,
+                   (first + next % per_head) * BQ, b, Hq, Sq);
+    }
+    __syncwarp();  // warp 0 meets again before its next wgmma
   }
 
-  __syncthreads();  // s/dp stage dk, q/dO stage dv
-  float* staged_dk = sS;
-  float* staged_dv = reinterpret_cast<float*>(sQ);
-  stage_rows(staged_dk + wr * LDO, dk_acc);
-  stage_rows(staged_dv + wr * LDO, dv_acc);
-  __syncthreads();
-  write_rows(dk + kv_base, staged_dk, k_rows, kv_rs);
-  write_rows(dv + kv_base, staged_dv, k_rows, kv_rs);
+  // ---- epilogue: dK and dV through this warpgroup's own rows of K and V --
+  if (active) {
+    const float one[2] = {1.f, 1.f};
+    stage_bf16<D>(smem + k_off, BK * ROW, 64 * w, dk, one);
+    stage_bf16<D>(smem + v_off, BK * ROW, 64 * w, dv, one);
+    warpgroup_sync_for_tma(w);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < SLABS; ++c) {
+        tma_store(&tm_dk, sK + c * BK * ROW + 64 * w * ROW, 64 * c, hk, kw0, b);
+        tma_store(&tm_dv, sV + c * BK * ROW + 64 * w * ROW, 64 * c, hk, kw0, b);
+      }
+      tma_store_wait();
+    }
+  }
 }
-
-static_assert(SmemDkv::q_off + 2 * TILE_H == SmemDkv::s_off, "q and dO tiles are adjacent");
 
 int check_shape(int B, int Sq, int Skv, int Hq, int Hkv, int Dim) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0) return (int)cudaErrorInvalidValue;
@@ -380,15 +540,23 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
                                  void* stream) {
   int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
   if (err) return err;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  if (!make_map(encode, &tm_q, q, B, Sq, Hq, D, k2::BQ) ||
+      !make_map(encode, &tm_k, k, B, Skv, Hkv, D, k2::BK) ||
+      !make_map(encode, &tm_v, v, B, Skv, Hkv, D, k2::BK) ||
+      !make_map(encode, &tm_do, dout, B, Sq, Hq, D, k2::BQ) ||
+      !make_map(encode, &tm_dq, dq, B, Sq, Hq, D, 64))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SmemDq::bytes);
+                                       (int)k2::bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, SmemDq::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal, scale);
+  dim3 grid(Hq, B, (Sq + k2::BQ - 1) / k2::BQ);
+  flash_bwd_dq_kernel<<<grid, NTHREADS, k2::bytes, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), Sq, Skv, Hq, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -398,16 +566,26 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                                   float scale, void* stream) {
   int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
   if (err) return err;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, tm_lse, tm_delta;
+  const long rows = (long)B * Hq * Sq;
+  if (!make_map_1d_f32(encode, &tm_lse, lse, rows, k3::ROW_BOX) ||
+      !make_map_1d_f32(encode, &tm_delta, delta, rows, k3::ROW_BOX) ||
+      !make_map(encode, &tm_q, q, B, Sq, Hq, D, k3::BQ) ||
+      !make_map(encode, &tm_k, k, B, Skv, Hkv, D, k3::BK) ||
+      !make_map(encode, &tm_v, v, B, Skv, Hkv, D, k3::BK) ||
+      !make_map(encode, &tm_do, dout, B, Sq, Hq, D, k3::BQ) ||
+      !make_map(encode, &tm_dk, dk, B, Skv, Hkv, D, 64) ||
+      !make_map(encode, &tm_dv, dv, B, Skv, Hkv, D, 64))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SmemDkv::bytes);
+                                       (int)k3::bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Skv + BK - 1) / BK, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, SmemDkv::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv,
-      Hq, Hkv, causal, scale);
+  dim3 grid(Hkv, B, (Skv + k3::BK - 1) / k3::BK);
+  flash_bwd_dkv_kernel<<<grid, NTHREADS, k3::bytes, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, tm_lse, tm_delta, Sq, Skv, Hq, causal, scale);
   return (int)cudaGetLastError();
 }
 

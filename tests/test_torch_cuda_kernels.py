@@ -164,6 +164,12 @@ BWD_CASES = [
     (1, 1, 65, 4, 1, 128, True),         # one query row
     (1, 100, 70, 8, 2, 128, False),      # non-causal, Sq > Skv
     (2, 128, 192, 8, 2, 128, False),     # non-causal, Sq < Skv
+    # the 128-row q tile of dQ and the 128-key tile of dK/dV
+    (1, 129, 129, 4, 1, 128, True),      # one row past a tile
+    (1, 255, 255, 4, 1, 128, True),      # one row short of two tiles
+    (3, 200, 200, 16, 4, 128, True),     # a map that ignored the batch would read the next one
+    (2, 300, 700, 16, 4, 128, True),     # offset 400: not a tile multiple
+    (1, 1, 2048, 4, 1, 128, True),       # one query row against many key tiles
 ]
 
 
@@ -182,6 +188,21 @@ def test_flash_bwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         _close_grad(got, ref)
+
+
+def test_flash_bwd_is_deterministic(dev):
+    """Two launches on the same inputs give bitwise-equal dq, dk and dv: the
+    kernels sum in a fixed order (the GQA group in registers), with no
+    atomics."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = _bf16((2, 300, 16, 128), g, dev), _bf16((2, 700, 4, 128), g, dev), \
+        _bf16((2, 700, 4, 128), g, dev)
+    dout = _bf16((2, 300, 16, 128), g, dev)
+    out, lse = ta.flash_attention_lse(q, k, v, True)
+    runs = [ta.flash_bwd(q, k, v, out, lse, dout, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_bwd_rejects_what_it_does_not_take(dev):
