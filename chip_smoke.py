@@ -9,7 +9,9 @@ Phases, all of them on every run, in this order:
   kernels  each kernel against its plain PyTorch version on the card, in
            bf16, at the serving and training paths' shapes; max abs error
            against a stated tolerance; kernel, plain, library and bound
-           times.
+           times. Paged attention also at a second shape (4 slots of
+           1537..2048 rows), with its time inside a CUDA graph (device_ms)
+           and the wrapper's host time per call (host_us).
   model    llama_1b at full width (random weights from a seed): one batched
            paged_prefill and a few paged_decode_one ticks, once through the
            kernels and once through the plain versions; logits compared.
@@ -113,6 +115,29 @@ def cuda_ms(torch, fn, arg_sets, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, arg_sets, iters: int = 20, replays: int = 5) -> float:
+    """Mean ms per call of ``iters`` calls (cycling over ``arg_sets``) captured
+    once in a CUDA graph, replayed ``replays`` times between CUDA events: the
+    device's time, without the host's cost of each launch."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 # --------------------------------------------------------------------------- #
 def phase_device(ctx):
     import torch
@@ -135,7 +160,8 @@ def phase_device(ctx):
     print(f"kernel build: {secs:.1f} s", flush=True)
     for name in ("flash_fwd", "flash_bwd", "paged_attention"):
         for line in _kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line or "entry function" in line
+                    or "error" in line.lower()):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
 
@@ -204,19 +230,33 @@ def phase_kernels(ctx):
           f"bound {bms:.4f} ms ({by}) on {ctx['card']}", flush=True)
 
     # ---- K4: paged decode attention ----------------------------------------
-    # The serve phase's engine: 64 slots, page size 64, 513 pages, and a block
-    # table as wide as max_seq_len / page_size = 2048 / 64 = 32 pages; slots
-    # hold 1..512 rows (at most 8 pages each, 512 real pages in all).
-    B, nh, nkv, D, ps, max_pages, total_pages = 64, 16, 4, 128, 64, 32, 513
-    slot_pages = (total_pages - 1) // B
+    ctx["k4"] = _paged_attention_kernel(ctx)
 
-    def paged_inputs(seed):
+    # ---- K1', K2, K3: the training path's attention kernels -----------------
+    _train_attention_kernels(ctx)
+
+
+def _paged_attention_kernel(ctx):
+    """K4 at two shapes, each against its plain version and timed three ways:
+    ``ms`` (20 wrapper calls between CUDA events, as for the other kernels),
+    ``device_ms`` (the same 20 calls captured once in a CUDA graph and
+    replayed: the device's time alone) and, at the serving shape, ``host_us``
+    (host clock over 200 wrapper calls with no synchronisation in between)."""
+    import torch
+
+    from ray_tpu_torch.models import paged_decode as pd
+
+    peaks = ctx["peaks"]
+    nh, nkv, D, ps, max_pages = 16, 4, 128, 64, 32
+
+    def paged_inputs(seed, B, lo, hi, total_pages, trash_slots):
         g = torch.Generator().manual_seed(seed)
-        lengths = torch.randint(1, slot_pages * ps + 1, (B,), generator=g, dtype=torch.int32)
-        lengths[:4] = 1                       # inactive-like slots: all-trash table rows
+        slot_pages = (total_pages - 1) // B
+        lengths = torch.randint(lo, hi + 1, (B,), generator=g, dtype=torch.int32)
+        lengths[:trash_slots] = 1             # inactive-like slots: all-trash table rows
         perm = torch.randperm(total_pages - 1, generator=g) + 1
         table = torch.zeros((B, max_pages), dtype=torch.int32)
-        for s in range(4, B):
+        for s in range(trash_slots, B):
             n = -(-int(lengths[s]) // ps)
             table[s, :n] = perm[s * slot_pages: s * slot_pages + n]
         gd = torch.Generator(device="cuda").manual_seed(seed)
@@ -225,34 +265,60 @@ def phase_kernels(ctx):
         q = (torch.randn((B, nh, D), generator=gd, device="cuda") * D ** -0.5).to(torch.bfloat16)
         return q, kp, vp, table.cuda(), lengths.cuda()
 
-    q, kp, vp, table, lengths = paged_inputs(30)
-    out = pd.paged_attention(q, kp, vp, table, lengths)
-    ref = pd._paged_attention_reference(q, kp, vp, table, lengths, 1.0)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    ratio = close_ratio(out, ref)
-    require(bool(torch.isfinite(out).all()), "paged_attention: non-finite output")
-    print(f"paged_attention (B{B} nh{nh} nkv{nkv} D{D} ps{ps}): max_abs_err {err:.3e}, worst "
-          f"error / (atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} |plain|) = {ratio:.3f} "
-          "(must be <= 1)", flush=True)
-    require(ratio <= 1.0, f"paged_attention disagrees: ratio {ratio}")
-    sets = [paged_inputs(40 + i) for i in range(4)]
-    ms = cuda_ms(torch, pd.paged_attention, sets)
-    plain = cuda_ms(torch, lambda *a: pd._paged_attention_reference(*a, 1.0), sets, iters=5)
-    rows = sum(int(s[4].sum()) for s in sets) / len(sets)  # K/V rows this data reads
-    flops = 4.0 * nh * D * rows
-    nbytes = 2.0 * (2 * B * nh * D + 2 * rows * nkv * D) + 4.0 * (B * max_pages + B)
-    bms, by = bound_ms(flops, nbytes, peaks)
-    ctx["k4"] = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
-                 "replaces": "ray_tpu/models/paged_decode.py:93", "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                 "library_ms": None, "shape": [B, nh, nkv, D, ps, max_pages]}
-    print(f"paged_attention: {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}) "
-          f"on {ctx['card']}", flush=True)
-    del q, kp, vp, table, lengths, out, ref, sets
-
-    # ---- K1', K2, K3: the training path's attention kernels -----------------
-    _train_attention_kernels(ctx)
+    # (a) the serve phase's engine: 64 slots, page size 64, 513 pages, and a
+    # block table as wide as max_seq_len / page_size = 2048 / 64 = 32 pages;
+    # slots hold 1..512 rows (at most 8 pages each, 512 real pages in all).
+    # (b) few slots, long contexts, the case splitting over the sequence is
+    # for: 4 slots of 1537..2048 rows on the same 32-page table.
+    shapes = {"": (64, 1, 512, 513, 4, 30), "_long": (4, 1537, 2048, 129, 0, 31)}
+    entry = {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
+             "replaces": "ray_tpu/models/paged_decode.py:93", "library_ms": None}
+    errs = []
+    for suffix, (B, lo, hi, total_pages, trash, seed) in shapes.items():
+        args = paged_inputs(seed, B, lo, hi, total_pages, trash)
+        out = pd.paged_attention(*args)
+        ref = pd._paged_attention_reference(*args, 1.0)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ratio = close_ratio(out, ref)
+        require(bool(torch.isfinite(out).all()), f"paged_attention B{B}: non-finite output")
+        print(f"paged_attention (B{B} nh{nh} nkv{nkv} D{D} ps{ps}, lengths {lo}..{hi}): "
+              f"max_abs_err {err:.3e}, worst error / (atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} "
+              f"|plain|) = {ratio:.3f} (must be <= 1)", flush=True)
+        require(ratio <= 1.0, f"paged_attention B{B} disagrees: ratio {ratio}")
+        errs.append(err)
+        del args, out, ref
+        sets = [paged_inputs(40 + 10 * len(suffix) + i, B, lo, hi, total_pages, trash)
+                for i in range(4)]
+        ms = cuda_ms(torch, pd.paged_attention, sets)
+        dev_ms = graph_ms(torch, pd.paged_attention, sets)
+        rows = sum(int(s[4].sum()) for s in sets) / len(sets)  # K/V rows this data reads
+        flops = 4.0 * nh * D * rows
+        nbytes = 2.0 * (2 * B * nh * D + 2 * rows * nkv * D) + 4.0 * (B * max_pages + B)
+        bms, by = bound_ms(flops, nbytes, peaks)
+        splits = pd.split_count(B, nkv, max_pages, ps, pd._sm_count(0))
+        entry.update({f"ms{suffix}": ms, f"device_ms{suffix}": dev_ms, f"bound_ms{suffix}": bms,
+                      f"shape{suffix}": [B, nh, nkv, D, ps, max_pages, lo, hi]})
+        line = (f"paged_attention B{B} lengths {lo}..{hi}, {splits} split(s) a slot by "
+                f"split_count: {ms:.5f} "
+                f"ms, device (graph) {dev_ms:.5f} ms")
+        if not suffix:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(200):
+                pd.paged_attention(*sets[i % len(sets)])
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            plain = cuda_ms(torch, lambda *a: pd._paged_attention_reference(*a, 1.0), sets,
+                            iters=5)
+            entry.update({"host_us": host_us, "plain_ms": plain, "bound_by": by})
+            line += f", host {host_us:.2f} us a call, plain {plain:.5f} ms"
+        print(f"{line}, bound {bms:.5f} ms ({by}: {nbytes / 1e6:.3f} MB) on {ctx['card']}",
+              flush=True)
+        del sets
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = max(errs)
+    return entry
 
 
 def _grad_ratio(out, ref) -> float:
@@ -628,7 +694,7 @@ def main() -> int:
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
-    print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shape"}
+    print(json.dumps({"kernels": [{k: v for k, v in e.items() if not k.startswith("shape")}
                                   for e in kernels]}))
     print(ctx["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": ctx["card"],

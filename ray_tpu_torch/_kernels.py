@@ -129,6 +129,8 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s device: torch's raw handle, without
+    building a Stream object on every launch."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))

@@ -6,10 +6,11 @@ recorded in a block table [num_slots, max_pages_per_slot]. Memory is
 committed per request (ceil((prompt+max_tokens)/page_size) pages), not per
 slot * max_seq.
 
-Decode attention runs the hand-written CUDA kernel ``csrc/paged_attention.cu``
-through ``paged_attention``: it reads exactly the pages a slot owns, in place
-in the pool. On a CPU tensor the wrapper runs ``_paged_attention_reference``,
-the gather-based plain version.
+Decode attention runs the hand-written CUDA kernels ``csrc/paged_attention.cu``
+through ``paged_attention``: they read exactly the pages a slot owns, in place
+in the pool, each slot's sequence split over several blocks whose partial
+softmaxes a second kernel merges. On a CPU tensor the wrapper runs
+``_paged_attention_reference``, the gather-based plain version.
 
 The pool is updated in place where the JAX version donates it through
 ``jit``. PAGE 0 IS THE TRASH PAGE: inactive slots and padded prefill rows
@@ -76,12 +77,56 @@ def _paged_attention_reference(q, k_pool, v_pool, table, lengths, scale):
     return out.reshape(b, nh, d).to(q.dtype)
 
 
+# A block of the split kernel loads CHUNK rows of a slot at once; the
+# library's ``paged_attention_chunk_rows`` is checked against it when it loads.
+# A slot is split only when its (slot, kv head) blocks alone would leave SMs
+# idle: every split beyond one costs a merge launch.
+CHUNK = 128
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+
+def split_count(b: int, nkv: int, max_pages: int, page_size: int, sms: int) -> int:
+    """Blocks per (slot, kv head) of the split kernel: enough for the grid to
+    give each of ``sms`` SMs one block, never more than the table's CHUNK-row
+    chunks. Block z of a slot takes chunks z, z + splits, ..."""
+    chunks = -(-max_pages * page_size // CHUNK)
+    want = -(-sms // max(1, b * nkv))
+    return max(1, min(chunks, want))
+
+
+def check_page_size(page_size: int) -> None:
+    """Raise unless the kernel can load a page as whole TMA boxes of 8 to 128
+    rows: a multiple of 8."""
+    if page_size <= 0 or page_size % 8:
+        raise ValueError(f"paged_attention kernel takes a page size that is a multiple of 8; "
+                         f"got {page_size}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The library and its C entry point, argument types set once."""
+    lib = _kernels.library(KERNEL)
+    rows = lib.paged_attention_chunk_rows()
+    if rows != CHUNK:
+        raise RuntimeError(f"{KERNEL} library loads {rows} rows a chunk, split_count {CHUNK}")
+    fn = lib.paged_attention_bf16
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def paged_attention(q, k_pool, v_pool, table, lengths):
     """Kernel wrapper. q: [B, nh, D], already scaled; pools: [n_kv, P_total,
     ps, D] (one layer); table: [B, max_pages] int32; lengths: [B] int32.
-    Launches the CUDA kernel for CUDA tensors (bf16, D 128, nh/n_kv 4: the
-    shape of every config on the serving path) and raises on anything else;
-    runs the plain version for CPU tensors."""
+    Launches the CUDA kernels for CUDA tensors (bf16, D 128, nh/n_kv 4: the
+    shape of every config on the serving path; page size a multiple of 8)
+    and raises on anything else; runs the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return _paged_attention_reference(q, k_pool, v_pool, table, lengths, 1.0)
     b, nh, d = q.shape
@@ -90,25 +135,28 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     if d != 128 or nh % nkv or nh // nkv != 4:
         raise ValueError(f"paged_attention kernel takes D 128 and nh/n_kv 4; "
                          f"got D={d}, nh={nh}, n_kv={nkv}")
+    check_page_size(ps)
     if v_pool.shape != k_pool.shape or k_pool.shape[3] != d:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not fit q")
     if table.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"table {tuple(table.shape)} / lengths {tuple(lengths.shape)} "
                          f"do not fit {b} slots")
+    dev = q.device
     for name, t, dt in (("q", q, torch.bfloat16), ("k_pool", k_pool, torch.bfloat16),
                         ("v_pool", v_pool, torch.bfloat16), ("table", table, torch.int32),
                         ("lengths", lengths, torch.int32)):
-        if t.device != q.device or t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.dtype != dt or t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned {dt} tensor on "
-                             f"{q.device}, got {t.dtype} on {t.device}")
+                             f"{dev}, got {t.dtype} on {t.device}")
+    splits = split_count(b, nkv, max_pages, ps, _sm_count(dev.index))
     out = torch.empty_like(q)
-    lib = _kernels.library(KERNEL)
-    fn = lib.paged_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    partials = (torch.empty(b * nh * splits * (d + 2), dtype=torch.float32, device=dev)
+                if splits > 1 else None)
+    lib, fn = _entry()
     err = fn(_kernels.ptr(q), _kernels.ptr(k_pool), _kernels.ptr(v_pool), _kernels.ptr(table),
              _kernels.ptr(lengths), _kernels.ptr(out), b, nh, nkv, d, total_pages, ps,
-             max_pages, _kernels.stream_of(q))
+             max_pages, None if partials is None else _kernels.ptr(partials), splits,
+             _kernels.stream_of(q))
     _kernels.check(lib, err, KERNEL)
     _kernels.launch_counts[KERNEL] += 1
     return out

@@ -88,11 +88,14 @@ class LLMEngine:
         if paged:
             from ray_tpu_torch.models.paged_decode import (
                 PageAllocator,
+                check_page_size,
                 init_paged_cache,
                 make_paged_decode_fn,
                 make_paged_prefill_fn,
             )
 
+            if dev.type == "cuda":
+                check_page_size(page_size)  # the decode kernel's limit, at construction
             self.page_size = page_size
             self.pages_per_slot = -(-self.max_seq // page_size)
             # default pool: dense-equivalent capacity (+1 trash page)

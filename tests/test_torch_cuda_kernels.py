@@ -112,23 +112,79 @@ def test_flash_fwd_rejects_what_it_does_not_take(dev):
 ])
 def test_paged_attention_matches_plain(dev, b, nh, nkv, d, ps, max_pages):
     g = torch.Generator().manual_seed(b + nh + d)
-    total = 1 + b * max_pages
     lengths = torch.randint(1, max_pages * ps + 1, (b,), generator=g, dtype=torch.int32)
     lengths[0] = 1  # an inactive slot reading the trash page
-    perm = torch.randperm(total - 1, generator=g) + 1
-    table = torch.zeros((b, max_pages), dtype=torch.int32)
-    for s in range(1, b):
-        n = -(-int(lengths[s]) // ps)
-        table[s, :n] = perm[s * max_pages: s * max_pages + n]
-    gd = torch.Generator(device=dev).manual_seed(7)
-    kp, vp = _bf16((nkv, total, ps, d), gd, dev), _bf16((nkv, total, ps, d), gd, dev)
-    q = (torch.randn((b, nh, d), generator=gd, device=dev) * d ** -0.5).to(torch.bfloat16)
-    table, lengths = table.to(dev), lengths.to(dev)
+    q, kp, vp, table, lengths = _paged_case(dev, lengths.tolist(), nh, nkv, d, ps, max_pages,
+                                            retired=(0,), g=g, dev_seed=7)
     before = _kernels.launch_counts["paged_attention"]
     out = pd.paged_attention(q, kp, vp, table, lengths)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["paged_attention"] == before + 1
     _close(out, pd._paged_attention_reference(q, kp, vp, table, lengths, 1.0))
+
+
+def _paged_case(dev, lengths, nh=16, nkv=4, d=128, ps=64, max_pages=32, retired=(), seed=0,
+                g=None, dev_seed=None):
+    """Inputs for ``paged_attention`` with each slot's own pages (random, in
+    place in a pool of 1 + B * max_pages pages); ``retired`` slots keep an
+    all-zero table row, so every row they read lies in trash page 0. ``g``
+    (the CPU generator for the pages) and ``dev_seed`` default to ``seed``
+    and ``seed + 1``."""
+    b = len(lengths)
+    g = torch.Generator().manual_seed(seed) if g is None else g
+    total = 1 + b * max_pages
+    perm = torch.randperm(total - 1, generator=g) + 1
+    table = torch.zeros((b, max_pages), dtype=torch.int32)
+    for s, n_rows in enumerate(lengths):
+        if s not in retired:
+            n = -(-n_rows // ps)
+            table[s, :n] = perm[s * max_pages: s * max_pages + n]
+    gd = torch.Generator(device=dev).manual_seed(seed + 1 if dev_seed is None else dev_seed)
+    kp, vp = _bf16((nkv, total, ps, d), gd, dev), _bf16((nkv, total, ps, d), gd, dev)
+    q = (torch.randn((b, nh, d), generator=gd, device=dev) * d ** -0.5).to(torch.bfloat16)
+    return q, kp, vp, table.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _paged_check(args):
+    before = _kernels.launch_counts["paged_attention"]
+    out = pd.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["paged_attention"] == before + 1
+    _close(out, pd._paged_attention_reference(*args, 1.0))
+
+
+def test_paged_attention_long_context(dev):
+    """Few slots, long contexts: each slot's rows are split over many blocks
+    and merged."""
+    g = torch.Generator().manual_seed(11)
+    lengths = torch.randint(1537, 2049, (4,), generator=g).tolist()
+    _paged_check(_paged_case(dev, lengths, seed=11))
+
+
+@pytest.mark.parametrize("ps,max_pages", [(16, 32), (64, 32), (16, 8), (64, 3), (48, 10),
+                                          (24, 16)])
+def test_paged_attention_split_edges(dev, ps, max_pages):
+    """Lengths at the edges of the kernel's 128-row chunks, of its boxes (64,
+    16 and 8 rows at page sizes 64, 48 and 24) and of the table."""
+    full = max_pages * ps
+    lengths = sorted({min(n, full) for n in (1, 63, 64, 65, 127, 128, 129, 256)} | {full})
+    _paged_check(_paged_case(dev, lengths, ps=ps, max_pages=max_pages, seed=ps + max_pages))
+
+
+def test_paged_attention_retired_slot(dev):
+    """A retired slot keeps its position and an all-zero table row: 300 rows,
+    all in trash page 0, read five times over."""
+    _paged_check(_paged_case(dev, [300, 700, 300, 5], retired=(0, 2), seed=3))
+
+
+def test_paged_attention_is_deterministic(dev):
+    """Two launches on the same inputs give bitwise-equal outputs: the splits
+    merge in a fixed order, with no atomics."""
+    g = torch.Generator().manual_seed(5)
+    args = _paged_case(dev, torch.randint(1, 2049, (6,), generator=g).tolist(), seed=5)
+    runs = [pd.paged_attention(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
 
 
 def test_paged_attention_rejects_what_it_does_not_take(dev):
@@ -148,6 +204,25 @@ def test_paged_attention_rejects_what_it_does_not_take(dev):
         q64 = torch.zeros(2, 8, 64, device=dev, dtype=torch.bfloat16)
         p64 = torch.zeros(2, 3, 16, 64, device=dev, dtype=torch.bfloat16)
         pd.paged_attention(q64, p64, p64, table, lengths)
+
+
+@pytest.mark.parametrize("ps", [4, 12])
+def test_paged_attention_rejects_page_sizes_it_cannot_box(dev, ps):
+    """The kernel loads whole TMA boxes of 8..128 rows of one page: a page
+    size that is not a multiple of 8 raises."""
+    args = _paged_case(dev, [5, 9], ps=ps, max_pages=4)
+    with pytest.raises(ValueError, match="page size"):
+        pd.paged_attention(*args)
+
+
+def test_engine_refuses_page_sizes_the_kernel_cannot_box(dev):
+    """The page size is checked when the engine is built, not at its first
+    decode tick."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    with pytest.raises(ValueError, match="multiple of 8"):
+        LLMEngine(LlamaConfig.tiny(dtype=torch.bfloat16), device=dev, page_size=12)
 
 
 def _close_grad(out, ref):

@@ -56,9 +56,45 @@ def _paged_inputs(seed, b=5, nh=4, nkv=2, d=32, ps=8, max_pages=4, total=16):
     return q, kp, vp, table, lengths
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_paged_attention_reference_matches_jax(seed):
-    q, kp, vp, table, lengths = _paged_inputs(seed)
+def _paged_case(lengths, ps, max_pages, retired=(), seed=0, nh=4, nkv=1, d=32):
+    """Each slot's own random pages in a pool of 1 + B * max_pages pages;
+    ``retired`` slots keep an all-zero table row (every row in trash page 0)."""
+    rng = np.random.default_rng(seed)
+    b, total = len(lengths), 1 + len(lengths) * max_pages
+    q = rng.standard_normal((b, nh, d)).astype(np.float32)
+    kp = rng.standard_normal((nkv, total, ps, d)).astype(np.float32)
+    vp = rng.standard_normal((nkv, total, ps, d)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, total))
+    table = np.zeros((b, max_pages), np.int32)
+    for s, n_rows in enumerate(lengths):
+        if s not in retired:
+            n = -(-n_rows // ps)
+            table[s, :n] = perm[s * max_pages:][:n]
+    return q, kp, vp, table, np.asarray(lengths, np.int32)
+
+
+def _edge_lengths(ps, max_pages):
+    """Lengths at the edges of the CUDA kernel's 128-row chunks, of 64-row
+    pages and of the table."""
+    full = max_pages * ps
+    return sorted({min(n, full) for n in (1, 63, 64, 65, 127, 128, 129, 256)} | {full})
+
+
+@pytest.mark.parametrize("case", [
+    *[pytest.param(seed, id=str(seed)) for seed in (0, 1, 2)],
+    *[pytest.param(dict(lengths=_edge_lengths(ps, mp), ps=ps, max_pages=mp, seed=ps + mp),
+                   id=f"edges-ps{ps}-pages{mp}")
+      for ps, mp in [(16, 32), (64, 32), (16, 8), (64, 3), (48, 10)]],
+    # a retired slot: an all-zero table row with length 300 reads trash page 0
+    # five times over
+    pytest.param(dict(lengths=[300, 700, 300, 5], ps=64, max_pages=32, retired=(0, 2), seed=3),
+                 id="retired-slot"),
+    pytest.param(dict(lengths=np.random.default_rng(11).integers(1537, 2049, 4).tolist(), ps=64,
+                      max_pages=32, seed=11), id="long-context"),
+])
+def test_paged_attention_reference_matches_jax(case):
+    q, kp, vp, table, lengths = (_paged_inputs(case) if isinstance(case, int)
+                                 else _paged_case(**case))
     want = np.asarray(jpd._paged_attention_reference(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
         jnp.asarray(lengths), 0.3))
@@ -67,6 +103,32 @@ def test_paged_attention_reference_matches_jax(seed):
     # the kernel wrapper takes the plain version for CPU tensors (q pre-scaled)
     got = tpd.paged_attention(_t(q) * 0.3, _t(kp), _t(vp), _t(table), _t(lengths))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,nkv,max_pages,ps,sms,want", [
+    (64, 4, 32, 64, 132, 1),    # the serving engine at llama_1b: 256 (slot, kv head) pairs
+    (4, 4, 32, 64, 132, 9),     # few slots, long table: split until the grid fills the card
+    (1, 4, 32, 64, 132, 16),    # one slot: as many splits as the table has chunks
+    (3, 1, 1, 64, 132, 1),      # a table shorter than one chunk
+])
+def test_split_count(b, nkv, max_pages, ps, sms, want):
+    got = tpd.split_count(b, nkv, max_pages, ps, sms)
+    assert got == want
+    chunks = -(-max_pages * ps // tpd.CHUNK)
+    assert 1 <= got <= chunks
+    assert got == chunks or b * nkv * got >= sms
+
+
+@pytest.mark.parametrize("ps,ok", [(8, True), (16, True), (24, True), (48, True), (64, True),
+                                   (96, True), (192, True), (0, False), (4, False),
+                                   (12, False), (30, False)])
+def test_check_page_size(ps, ok):
+    """The decode kernel takes pages of whole TMA boxes of 8..128 rows."""
+    if ok:
+        tpd.check_page_size(ps)
+    else:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            tpd.check_page_size(ps)
 
 
 def test_paged_attention_layer_wrapper_matches_jax(models):
