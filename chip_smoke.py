@@ -24,6 +24,16 @@ Phases, all of them on every run, in this order:
            B8 S2048 (ray_tpu_torch.bench): 3 warm-up steps, then 10 timed
            steps, each of which must launch the lse forward, dQ and dK/dV
            kernels exactly once per layer and the plain forward kernel never.
+  rl       the GRPO path (ray_tpu_torch.rl) at full llama_1b, bf16, save_attn,
+           attention_impl "auto": (a) GRPO loss and every gradient at B8 S320
+           (prompts of 32..256 tokens; old and reference logprobs through
+           make_logprob_fn), kernels against the plain path; (b) GRPOTrainer,
+           3 train_steps of 8 prompts x 4 samples x 64 new tokens at
+           temperature 1.0 through LLMEngine (32 slots), with exact launch
+           counts and the frozen reference policy checked bitwise.
+
+Every launch check also requires attention_plain == paged_attention_plain
+== 0: the dispatch rule sends no llama_1b call to a plain version.
 
 Prints {"kernels": [...]} and the nvidia-smi line before the last line; the
 last line is {"ok": true, "device": {...}} only when every phase passed. Any
@@ -44,7 +54,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
-PHASES = ("device", "kernels", "model", "serve", "train")
+PHASES = ("device", "kernels", "model", "serve", "train", "rl")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -76,6 +86,8 @@ BWD_SRC = "ray_tpu_torch/csrc/flash_bwd.cu"
 PAGED_SRC = "ray_tpu_torch/csrc/paged_attention.cu"
 # the training path's attention shape: llama_1b at batch 8, sequence 2048
 TRAIN_ATTN = (8, 2048, 2048, 16, 4, 128, True)
+# the dispatchers' counts of calls sent to a plain version (_kernels.py)
+PLAIN_COUNTS = ("attention_plain", "paged_attention_plain")
 
 
 class PhaseError(RuntimeError):
@@ -85,6 +97,11 @@ class PhaseError(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def require_no_plain(counts, where: str) -> None:
+    plain = {n: counts.get(n, 0) for n in PLAIN_COUNTS}
+    require(not any(plain.values()), f"{where}: llama_1b calls ran plain versions: {plain}")
 
 
 def close_ratio(out, ref) -> float:
@@ -327,6 +344,39 @@ def _grad_ratio(out, ref) -> float:
     return ((out - ref).abs() / (GRAD_ATOL * ref.abs().max() + KERNEL_RTOL * ref.abs())).max().item()
 
 
+def grad_leaves(params):
+    """(names, leaves) of llama parameters in train.step._leaves' order, each
+    leaf set to take a gradient."""
+    from ray_tpu_torch.train.step import _leaves
+
+    names = []
+    for key in sorted(params):
+        names += ([f"layers.{n}" for n in sorted(params["layers"])] if key == "layers" else [key])
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return names, leaves
+
+
+def compare_grads(torch, where: str, names, grads_k, grads_p) -> float:
+    """Prints max|diff|/max|plain| of every gradient, kernels against plain,
+    and fails on a non-finite one or one beyond TRAIN_GRAD_RTOL; returns the
+    worst."""
+    worst = 0.0
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        require(bool(torch.isfinite(gk).all()), f"{where}: non-finite gradient {name}")
+        rel = ((gk.float() - gp.float()).abs().max() / gp.float().abs().max()).item()
+        print(f"  grad {name} {tuple(gk.shape)}: max|diff|/max|plain| {rel:.3e} "
+              f"(tol {TRAIN_GRAD_RTOL})", flush=True)
+        worst = max(worst, rel)
+    require(worst <= TRAIN_GRAD_RTOL, f"{where} gradients disagree: {worst} > {TRAIN_GRAD_RTOL}")
+    return worst
+
+
+def require_no_launches(counts, where: str) -> None:
+    require(not any(counts.values()), f"{where} plain path launched kernels: {dict(counts)}")
+
+
 def _train_attention_kernels(ctx):
     """K1' (forward with lse), K2 (dQ) and K3 (dK/dV) at the training shape
     and at two ragged Sq < Skv cases: each against its plain version on the same
@@ -536,6 +586,7 @@ def phase_serve(ctx):
         engine.stop()
     require(not engine._thread.is_alive(), "engine thread did not stop")
     counts = {name: _kernels.launch_counts[name] for name in ("flash_fwd", "paged_attention")}
+    require_no_plain(_kernels.launch_counts, "serve")
     s1 = engine.stats()
     programs = s1["prefill_programs"] - s0["prefill_programs"]
     ticks = s1["decode_steps"] - s0["decode_steps"]
@@ -570,7 +621,6 @@ def phase_train(ctx):
     from ray_tpu_torch.bench import train_bench
     from ray_tpu_torch.models import llama as tl
     from ray_tpu_torch.ops import attention as ta
-    from ray_tpu_torch.train.step import _leaves
 
     torch.cuda.empty_cache()
     # (a) loss and gradients, kernels against the plain path: full llama_1b,
@@ -580,12 +630,7 @@ def phase_train(ctx):
     rng = np.random.default_rng(1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2048))).cuda()
     targets = torch.roll(tokens, -1, dims=1)
-    leaves = _leaves(params)
-    names = []  # in _leaves' order
-    for key in sorted(params):
-        names += ([f"layers.{n}" for n in sorted(params["layers"])] if key == "layers" else [key])
-    for p in leaves:
-        p.requires_grad_(True)
+    names, leaves = grad_leaves(params)
 
     def grads():
         loss = tl.llama_loss(params, tokens, targets, cfg)
@@ -599,6 +644,7 @@ def phase_train(ctx):
     counts = dict(_kernels.launch_counts)
     want = {"flash_fwd_lse": cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
             "flash_bwd_dkv": cfg.num_layers}
+    require_no_plain(counts, "train (a)")
     require(counts == want, f"kernel train step launched {counts}, expected {want}")
     _kernels.reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -607,27 +653,20 @@ def phase_train(ctx):
         loss_p, grads_p = grads()
     torch.cuda.synchronize()
     peak_p = torch.cuda.max_memory_allocated()
-    require(not any(_kernels.launch_counts.values()),
-            f"plain run launched kernels: {dict(_kernels.launch_counts)}")
+    require_no_launches(_kernels.launch_counts, "train (a)")
     rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     print(f"train (a) llama_1b, {cfg.num_layers} layers, B2 S2048, save_attn: loss "
           f"kernels {loss_k.item():.6f} plain {loss_p.item():.6f}, relative difference "
           f"{rel_loss:.3e} (tol {TRAIN_LOSS_RTOL}); max_memory_allocated kernels "
           f"{peak_k} B, plain {peak_p} B", flush=True)
-    worst = 0.0
-    for name, gk, gp in zip(names, grads_k, grads_p):
-        require(bool(torch.isfinite(gk).all()), f"non-finite gradient {name}")
-        rel = ((gk.float() - gp.float()).abs().max() / gp.float().abs().max()).item()
-        print(f"  grad {name} {tuple(gk.shape)}: max|diff|/max|plain| {rel:.3e} "
-              f"(tol {TRAIN_GRAD_RTOL})", flush=True)
-        worst = max(worst, rel)
+    worst = compare_grads(torch, "train (a)", names, grads_k, grads_p)
     require(rel_loss <= TRAIN_LOSS_RTOL, f"train loss disagrees: {rel_loss}")
-    require(worst <= TRAIN_GRAD_RTOL, f"train gradients disagree: {worst} > {TRAIN_GRAD_RTOL}")
     del params, leaves, grads_k, grads_p, tokens, targets
     torch.cuda.empty_cache()
 
     # (b) the train step at full llama_1b, as ray_tpu_torch.bench measures it
     res = train_bench(steps=10, warmup=3)
+    require_no_plain(res["launches"], "train (b)")
     L = _llama_1b().num_layers
     want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
     for i, rec in enumerate(res["per_step"]):
@@ -646,6 +685,185 @@ def phase_train(ctx):
     ctx["train"] = dict(res, rel_loss_a=rel_loss, rel_grad_a=worst, peak_a_kernels=peak_k,
                         peak_a_plain=peak_p)
     ctx["train_launches"] = res["launches"]
+    torch.cuda.empty_cache()
+
+
+def phase_rl(ctx):
+    import math
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.rl import (GRPOConfig, GRPOTrainer, compute_group_advantages, grpo_loss,
+                                  make_logprob_fn)
+    from ray_tpu_torch.train.step import _leaves
+
+    torch.cuda.empty_cache()
+    # llama_1b as a GRPO user runs it: save_attn, attention_impl "auto" (the
+    # dispatch rule decides), a 512-row context (prompts of up to 256 tokens
+    # and 64 new ones), so the engine's KV pool (32 slots x 512 rows, 0.74
+    # GB) sits beside the trainer's parameters, reference copy, moments and
+    # gradients (5 x 2.2 GB)
+    cfg = tl.LlamaConfig.llama_1b(max_seq_len=512, remat="save_attn")
+    grpo = GRPOConfig()
+    L, V = cfg.num_layers, cfg.vocab_size
+    # (a) GRPO loss and gradients at B8 S320 (not a multiple of the kernels'
+    # 128-row tiles), kernels against the plain path. The policy and a
+    # distinct frozen reference policy are random from seeds 0 and 1, so the
+    # KL term and its gradient are not 0. Each path computes its own old and
+    # reference logprobs through make_logprob_fn, as a trainer does: the
+    # rollout policy is the policy, so the ratio is 1 on both paths. K1 and
+    # K1' are one kernel, with and without the lse output, so the plain path
+    # takes one plain forward for both (reference_attention_lse): a second
+    # plain forward would differ from it by bf16 rounding, and the ratio
+    # (exp of a difference of two logprobs near -10) would carry that noise.
+    params = tl.llama_init(cfg, seed=0, device="cuda")
+    ref_params = tl.llama_init(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(2)
+    n, seq = 8, 320
+    tokens = torch.from_numpy(rng.integers(0, V, (n, seq))).cuda()
+    mask = np.zeros((n, seq - 1), np.float32)
+    prompt_lens = rng.integers(32, 257, n)
+    for i, p in enumerate(prompt_lens):
+        mask[i, p - 1:] = 1.0  # position t predicts token t + 1
+    mask = torch.from_numpy(mask).cuda()
+    rewards = torch.from_numpy(rng.random((n // grpo.group_size, grpo.group_size),
+                                          dtype=np.float32))
+    advantages = compute_group_advantages(rewards).reshape(-1).cuda()
+    logprob = make_logprob_fn(cfg)
+    names, leaves = grad_leaves(params)
+
+    def update():
+        old, ref = logprob(params, tokens), logprob(ref_params, tokens)
+        with torch.enable_grad():
+            loss, aux = grpo_loss(params, tokens, mask, advantages, old, ref, cfg,
+                                  grpo.clip_eps, grpo.kl_coef)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), {k: v.item() for k, v in aux.items()}, grads, old
+
+    _kernels.reset_counts()
+    loss_k, aux_k, grads_k, old_k = update()
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launch_counts)
+    want = {"flash_fwd": 2 * L, "flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    require_no_plain(counts, "rl (a)")
+    require(counts == want, f"rl (a) kernel path launched {counts}, expected {want}")
+    _kernels.reset_counts()
+    with mock.patch.object(ta, "flash_attention",
+                           lambda q, k, v, causal=True, scale=None:
+                           ta.reference_attention_lse(q, k, v, causal, scale)[0]), \
+            mock.patch.object(ta, "flash_attention_lse", ta.reference_attention_lse), \
+            mock.patch.object(ta, "flash_bwd", ta.flash_bwd_reference):
+        loss_p, aux_p, grads_p, old_p = update()
+    torch.cuda.synchronize()
+    require_no_launches(_kernels.launch_counts, "rl (a)")
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    rel_terms = {k: abs(aux_k[k] - aux_p[k]) / abs(aux_p[k]) for k in ("pg_loss", "kl")}
+    lp_diff = (old_k - old_p).abs().max().item()
+    print(f"rl (a) llama_1b, {L} layers, B{n} S{seq}, prompts {int(prompt_lens.min())}.."
+          f"{int(prompt_lens.max())}, save_attn: loss kernels {loss_k.item():.6f} plain "
+          f"{loss_p.item():.6f}, relative difference {rel_loss:.3e} (tol {TRAIN_LOSS_RTOL}); "
+          f"kernels {aux_k}, plain {aux_p}, relative differences {rel_terms}; old logprobs "
+          f"max|kernels - plain| {lp_diff:.3e}",
+          flush=True)
+    worst = compare_grads(torch, "rl (a)", names, grads_k, grads_p)
+    require(rel_loss <= TRAIN_LOSS_RTOL, f"rl (a) GRPO loss disagrees: {rel_loss}")
+    # the ratio is 1 on both paths, so pg_loss is mostly -sum(adv * mask) /
+    # denom and does not read the kernels: the KL term is held on its own
+    require(rel_terms["kl"] <= TRAIN_LOSS_RTOL, f"rl (a) KL disagrees: {rel_terms['kl']}")
+    ctx["rl"] = {"a": {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+                       "rel_loss": rel_loss, "rel_grad": worst, "logprob_max_abs_diff": lp_diff,
+                       "aux_kernels": aux_k, "aux_plain": aux_p, "launches": counts}}
+    del params, ref_params, leaves, grads_k, grads_p, old_k, old_p
+    torch.cuda.empty_cache()
+
+    # (b) GRPOTrainer: 3 train_steps, GRPOConfig() defaults (group 4, 64 new
+    # tokens, temperature 1.0, kl 0.02, 1 epoch), 32 slots, 8 prompts of
+    # 32..256 tokens; the reward is the share of completion tokens below
+    # vocab_size // 2
+    steps = 3
+    prompts = [rng.integers(0, V, int(rng.integers(32, 257))).tolist() for _ in range(8)]
+
+    def reward(prompt, completion):
+        return sum(1 for t in completion if t < V // 2) / max(1, len(completion))
+
+    trainer = GRPOTrainer(cfg, reward, grpo=grpo, num_slots=32, device="cuda")
+    seconds = {"rollout": 0.0, "logprobs": 0.0, "update": 0.0}
+    completions = []
+
+    def timed(key, fn, keep=None):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds[key] += time.perf_counter() - t0
+            if keep is not None:
+                keep.extend(out[0])
+            return out
+        return call
+
+    trainer._rollout = timed("rollout", trainer._rollout, completions)
+    trainer._logprob = timed("logprobs", trainer._logprob)
+    trainer._step = timed("update", trainer._step)
+    per_step = []
+    try:
+        s0 = trainer.engine.stats()
+        _kernels.reset_counts()
+        t_run = time.perf_counter()
+        for i in range(steps):
+            before = dict(seconds)
+            t0 = time.perf_counter()
+            m = trainer.train_step(prompts)
+            wall = time.perf_counter() - t0
+            split = {k: seconds[k] - before[k] for k in seconds}
+            per_step.append(dict(m, wall_s=wall, **{f"{k}_s": v for k, v in split.items()}))
+            print(f"rl (b) step {i}: {wall:.3f} s (rollout {split['rollout']:.3f} s, logprobs "
+                  f"{split['logprobs']:.3f} s, update {split['update']:.3f} s); "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in m.items()), flush=True)
+            require(all(math.isfinite(v) for v in m.values()), f"rl (b) step {i}: {m}")
+        t_run = time.perf_counter() - t_run
+        counts = dict(_kernels.launch_counts)
+        s1 = trainer.engine.stats()
+    finally:
+        trainer.stop()
+    require(not trainer.engine._thread.is_alive(), "rl (b): engine thread did not stop")
+    require(len(completions) == steps * len(prompts) * grpo.group_size,
+            f"rl (b): {len(completions)} completions")
+    for c in completions:
+        require(len(c) == grpo.max_new_tokens and all(0 <= t < V for t in c),
+                f"rl (b): a completion of {len(c)} tokens, or outside the vocab")
+    programs = s1["prefill_programs"] - s0["prefill_programs"]
+    ticks = s1["decode_steps"] - s0["decode_steps"]
+    updates = steps * grpo.epochs_per_batch
+    # save_attn keeps the flash op's outputs: one lse forward, dQ and dK/dV
+    # a layer per update, and no second forward in the backward
+    want = {"flash_fwd": L * (programs + 2 * steps), "paged_attention": L * ticks,
+            "flash_fwd_lse": L * updates, "flash_bwd_dq": L * updates,
+            "flash_bwd_dkv": L * updates}
+    require_no_plain(counts, "rl (b)")
+    require(counts == want, f"rl (b) launched {counts}, expected {want} ({programs} prefill "
+            f"programs, {ticks} decode ticks, {updates} updates)")
+    fresh = tl.llama_init(cfg, seed=0, device="cuda")  # the trainer's initial weights
+    require(all(torch.equal(a, b) for a, b in zip(_leaves(trainer._ref_params), _leaves(fresh))),
+            "rl (b): the reference policy moved")
+    moved = sum(int((a != b).sum()) for a, b in zip(_leaves(trainer.state.params),
+                                                   _leaves(fresh)))
+    require(moved > 0, "rl (b): the policy never moved")
+    print(f"rl (b) on {ctx['card']} ({ctx['smi']}): llama_1b, {steps} GRPO steps of "
+          f"{len(prompts)} prompts x {grpo.group_size} x {grpo.max_new_tokens} tokens in "
+          f"{t_run:.3f} s: rollout {seconds['rollout']:.3f} s, logprobs "
+          f"{seconds['logprobs']:.3f} s, update {seconds['update']:.3f} s; {programs} prefill "
+          f"programs, {ticks} decode ticks, launches {counts}; {moved} of "
+          f"{cfg.num_params} policy weights moved, the reference policy bitwise unchanged",
+          flush=True)
+    ctx["rl"]["b"] = {"steps": per_step, "seconds": seconds, "wall_s": t_run,
+                      "prefill_programs": programs, "decode_ticks": ticks, "launches": counts,
+                      "weights_moved": moved}
+    del trainer, fresh
     torch.cuda.empty_cache()
 
 
@@ -690,7 +908,7 @@ def main() -> int:
     record = {"card": ctx["card"], "smi": ctx["smi"], "build_s": ctx["build_s"],
               "peaks": ctx["peaks_key"], "kernels": kernels,
               "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
-              "train": ctx["train"]}
+              "train": ctx["train"], "rl": ctx["rl"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,8 +1,9 @@
-"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model, serving and
-training paths.
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model, serving,
+training and RL (GRPO, PPO) paths.
 
 Mirrors ``ray_tpu``'s module paths and public names (``ops``, ``models``,
-``serve.llm``, ``train.step``) so each function has an obvious counterpart. Hot kernels are
+``serve.llm``, ``train.step``, ``rl``) so each function has an obvious
+counterpart. Hot kernels are
 hand-written CUDA C++ for Hopper under ``csrc/``; they are compiled at their
 first launch (``_kernels.py``), never on import, so importing the package
 needs neither a card nor ``nvcc``.

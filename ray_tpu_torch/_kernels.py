@@ -10,7 +10,9 @@ imported.
 
 Each launching wrapper adds one to ``launch_counts[<kernel>]`` right where it
 launches, and nowhere else, so a run can show that its path went through
-the kernels.
+the kernels. A dispatcher that sends CUDA tensors the kernels do not take to
+a plain version counts that call under its own key
+(``attention_plain``, ``paged_attention_plain``), never under a kernel's.
 """
 
 from __future__ import annotations

@@ -10,7 +10,12 @@ Decode attention runs the hand-written CUDA kernels ``csrc/paged_attention.cu``
 through ``paged_attention``: they read exactly the pages a slot owns, in place
 in the pool, each slot's sequence split over several blocks whose partial
 softmaxes a second kernel merges. On a CPU tensor the wrapper runs
-``_paged_attention_reference``, the gather-based plain version.
+``_paged_attention_reference``, the gather-based plain version. On the card,
+``_paged_attention`` sends a layer of a head dim the kernel does not tile
+(``kernel_tiles``: the JAX package's rule, ``head_dim % 128 != 0``) to the
+plain version and counts it as ``paged_attention_plain``, as the JAX package
+takes its gather path there. A head dim it tiles at a GQA group or dtype the
+kernel does not take raises in the wrapper.
 
 The pool is updated in place where the JAX version donates it through
 ``jit``. PAGE 0 IS THE TRASH PAGE: inactive slots and padded prefill rows
@@ -35,6 +40,10 @@ from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 KERNEL = "paged_attention"
+PLAIN = "paged_attention_plain"
+# What the kernel takes: bf16, one head dim, one GQA group. The dispatch rule
+# sends only head dims off multiples of TILE to the plain version.
+HEAD_DIM, GROUP, TILE = 128, 4, 128
 
 
 class PagedKVCache(NamedTuple):
@@ -95,6 +104,16 @@ def split_count(b: int, nkv: int, max_pages: int, page_size: int, sms: int) -> i
     return max(1, min(chunks, want))
 
 
+def check_layer(head_dim: int, num_heads: int, num_kv_heads: int, dtype) -> None:
+    """Raise unless the kernel takes a layer of this shape and dtype: bf16,
+    head_dim 128, 4 q heads per kv head."""
+    if head_dim != HEAD_DIM or num_heads % num_kv_heads or num_heads // num_kv_heads != GROUP:
+        raise ValueError(f"paged_attention kernel takes D {HEAD_DIM} and nh/n_kv {GROUP}; "
+                         f"got D={head_dim}, nh={num_heads}, n_kv={num_kv_heads}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"paged_attention kernel takes bfloat16, got {dtype}")
+
+
 def check_page_size(page_size: int) -> None:
     """Raise unless the kernel can load a page as whole TMA boxes of 8 to 128
     rows: a multiple of 8."""
@@ -132,9 +151,7 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     b, nh, d = q.shape
     nkv, total_pages, ps, _ = k_pool.shape
     max_pages = table.shape[1]
-    if d != 128 or nh % nkv or nh // nkv != 4:
-        raise ValueError(f"paged_attention kernel takes D 128 and nh/n_kv 4; "
-                         f"got D={d}, nh={nh}, n_kv={nkv}")
+    check_layer(d, nh, nkv, q.dtype)
     check_page_size(ps)
     if v_pool.shape != k_pool.shape or k_pool.shape[3] != d:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not fit q")
@@ -162,10 +179,21 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     return out
 
 
+def kernel_tiles(head_dim: int) -> bool:
+    """The dispatch rule of ``_paged_attention`` on the card: whether the
+    decode kernel tiles this head dim, by the JAX package's rule. Group,
+    dtype and page size are no part of the rule: the wrapper raises on those
+    it does not take."""
+    return head_dim % TILE == 0
+
+
 def _paged_attention(q, k_pool, v_pool, table, lengths, scale, config):
     """q: [B, 1, nh, D] -> [B, 1, nh, D]. q is scaled here: the kernel does
     not scale it."""
     qs = (q[:, 0] * scale).to(q.dtype)
+    if q.device.type == "cuda" and not kernel_tiles(q.shape[-1]):
+        _kernels.launch_counts[PLAIN] += 1
+        return _paged_attention_reference(qs, k_pool, v_pool, table, lengths, 1.0)[:, None]
     return paged_attention(qs, k_pool, v_pool, table, lengths)[:, None]
 
 

@@ -26,9 +26,20 @@ Port of ray_tpu/ops/attention.py.
   the op with a gradient when autograd records (training) and through the
   plain forward wrapper otherwise (serving); ``"reference"`` is the plain path.
 
-On a CUDA tensor each wrapper launches its kernel or raises on input the
-kernel does not take; it never falls back. On a CPU tensor it runs the plain
-version. The kernels mask ragged edges themselves, so nothing is padded.
+The dispatch rule of ``"auto"`` on the card is ``flash_tiles``, decided
+before any launch from the head dim alone, as the JAX package takes its
+reference path for what its kernel does not tile: CUDA tensors of a head dim
+the kernels tile go to the wrappers; CUDA tensors of another head dim (the
+forward kernel tiles 64 and 128; with a gradient the backward kernels run
+too, and they tile 128 only) go to ``reference_attention``, with autograd
+through it, and each such call adds one to
+``launch_counts["attention_plain"]``. A head dim the kernels tile at a GQA
+group or dtype they do not take raises in the wrapper, as it does under
+``"flash"``, which means the kernel or an error. This is no fallback on
+failure: a kernel that fails to build or to launch raises. On a CUDA tensor
+each wrapper launches its kernel or raises on input the kernel does not
+take; on a CPU tensor it runs the plain version.
+The kernels mask ragged edges themselves, so nothing is padded.
 
 Layouts follow the JAX package: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D].
 Causal masking is bottom-right aligned: query row i sits at absolute
@@ -48,6 +59,10 @@ from ray_tpu_torch import _kernels
 
 NEG_INF = -1e30
 FWD_LIB, BWD_LIB = "flash_fwd", "flash_bwd"
+# What the kernels take: the forward these head dims, the backward one head
+# dim at one GQA group; all of them bf16 only.
+FWD_DIMS, BWD_DIM, BWD_GROUP = (64, 128), 128, 4
+PLAIN = "attention_plain"
 
 
 # --------------------------------------------------------------------------- #
@@ -164,7 +179,7 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
         return reference_attention(q, k, v, causal, scale)
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    _check_cuda_inputs("flash_fwd", (64, 128), q=q, k=k, v=v)
+    _check_cuda_inputs("flash_fwd", FWD_DIMS, q=q, k=k, v=v)
     if lse is not None and (lse.dtype != torch.float32 or lse.shape != (b, hq, sq)
                             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("lse must be a contiguous float32 [B, Hq, Sq] tensor on q's device")
@@ -240,9 +255,9 @@ def _check_bwd_inputs(q, k, v, dout, lse, delta, causal: bool) -> None:
     _check_shapes(q, k, v, causal)
     if dout.shape != q.shape:
         raise ValueError(f"dout shape {tuple(dout.shape)} != q shape {tuple(q.shape)}")
-    _check_cuda_inputs("flash_bwd", (128,), q=q, k=k, v=v, dout=dout)
-    if q.shape[2] != 4 * k.shape[2]:
-        raise ValueError(f"flash_bwd kernels take 4 q heads per kv head, got "
+    _check_cuda_inputs("flash_bwd", (BWD_DIM,), q=q, k=k, v=v, dout=dout)
+    if q.shape[2] != BWD_GROUP * k.shape[2]:
+        raise ValueError(f"flash_bwd kernels take {BWD_GROUP} q heads per kv head, got "
                          f"{q.shape[2]} over {k.shape[2]}")
     b, sq, hq, _ = q.shape
     _check_rows(b, hq, sq, q.device, lse=lse, delta=delta)
@@ -320,12 +335,25 @@ def flash_attention_with_grad(q, k, v, causal: bool = True, scale: Optional[floa
     return _flash_attn_op(q, k, v, causal, float(scale))[0]
 
 
+def flash_tiles(head_dim: int, grad: bool) -> bool:
+    """The dispatch rule of ``attention(impl="auto")`` on the card: whether
+    the kernels tile this head dim. The forward kernel tiles 64 and 128; with
+    a gradient (``grad``) the backward kernels also run, and they tile 128
+    only. Group and dtype are no part of the rule: the wrappers raise on
+    those they do not take."""
+    return head_dim == BWD_DIM if grad else head_dim in FWD_DIMS
+
+
 def attention(q, k, v, causal: bool = True, scale: Optional[float] = None, impl: str = "auto"):
     """Dispatch. impl: "auto" | "flash" | "reference"."""
     if impl == "reference":
         return reference_attention(q, k, v, causal, scale)
-    if impl in ("auto", "flash"):
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-            return flash_attention_with_grad(q, k, v, causal, scale)
-        return flash_attention(q, k, v, causal, scale)
-    raise ValueError(f"unknown attention impl {impl!r}; options: auto, flash, reference")
+    if impl not in ("auto", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}; options: auto, flash, reference")
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if impl == "auto" and q.device.type == "cuda" and not flash_tiles(q.shape[-1], grad):
+        _kernels.launch_counts[PLAIN] += 1
+        return reference_attention(q, k, v, causal, scale)
+    if grad:
+        return flash_attention_with_grad(q, k, v, causal, scale)
+    return flash_attention(q, k, v, causal, scale)

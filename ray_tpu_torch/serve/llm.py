@@ -88,14 +88,19 @@ class LLMEngine:
         if paged:
             from ray_tpu_torch.models.paged_decode import (
                 PageAllocator,
+                check_layer,
                 check_page_size,
                 init_paged_cache,
+                kernel_tiles,
                 make_paged_decode_fn,
                 make_paged_prefill_fn,
             )
 
-            if dev.type == "cuda":
-                check_page_size(page_size)  # the decode kernel's limit, at construction
+            if dev.type == "cuda" and kernel_tiles(config.head_dim_):
+                # the decode kernel's limits, at construction, not at the first tick
+                check_layer(config.head_dim_, config.num_heads, config.num_kv_heads,
+                            config.dtype)
+                check_page_size(page_size)
             self.page_size = page_size
             self.pages_per_slot = -(-self.max_seq // page_size)
             # default pool: dense-equivalent capacity (+1 trash page)

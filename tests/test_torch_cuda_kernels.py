@@ -217,12 +217,25 @@ def test_paged_attention_rejects_page_sizes_it_cannot_box(dev, ps):
 
 def test_engine_refuses_page_sizes_the_kernel_cannot_box(dev):
     """The page size is checked when the engine is built, not at its first
-    decode tick."""
+    decode tick, for a config whose head dim the decode kernel tiles."""
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.serve.llm import LLMEngine
 
     with pytest.raises(ValueError, match="multiple of 8"):
-        LLMEngine(LlamaConfig.tiny(dtype=torch.bfloat16), device=dev, page_size=12)
+        LLMEngine(_kernel_shaped(), device=dev, page_size=12)
+    # tiny's decode runs the plain version: any page size will do
+    LLMEngine(LlamaConfig.tiny(dtype=torch.bfloat16), device=dev, page_size=12).stop()
+
+
+def _kernel_shaped(**kw):
+    """A small config of llama_1b's attention shape: head_dim 128, 4 q heads
+    per kv head, bf16."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    kw.setdefault("num_heads", 4)
+    kw.setdefault("num_kv_heads", 1)
+    return LlamaConfig(vocab_size=256, hidden_size=128 * kw["num_heads"], intermediate_size=256,
+                       num_layers=2, max_seq_len=256, rope_theta=10000.0, **kw)
 
 
 def _close_grad(out, ref):
@@ -315,3 +328,214 @@ def test_flash_op_gradients_match_plain(dev, b, sq, skv, causal):
     ta.reference_attention(*plain, causal=causal).backward(dout.float())
     for got, ref in zip(leaves, plain):
         _close_grad(got.grad, ref.grad.to(torch.bfloat16))
+
+
+# --------------------------------------------------------------------------- #
+# The dispatch rule on the card: shapes the kernels do not take run the plain
+# versions, counted apart; the JAX package serves and trains them too.
+# --------------------------------------------------------------------------- #
+# Model logits and train metrics, bf16 on the card against fp32 on the CPU
+# (chip_smoke.py's model-phase tolerance): max |diff| / max |fp32|.
+MODEL_RTOL = 5e-2
+KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention")
+PLAINS = ("attention_plain", "paged_attention_plain")
+
+
+def _counts():
+    return {n: _kernels.launch_counts[n] for n in KERNELS + PLAINS}
+
+
+def _delta(before):
+    return {n: c - before[n] for n, c in _counts().items() if c != before[n]}
+
+
+def _tiny(dtype, **kw):
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.tiny(dtype=dtype, **kw)
+
+
+def _rel(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("shape,grad,want", [
+    ((1, 64, 4, 2, 32), False, {"attention_plain": 1}),          # tiny
+    ((1, 64, 4, 2, 32), True, {"attention_plain": 1}),
+    ((1, 64, 12, 12, 64), True, {"attention_plain": 1}),         # D64: no backward kernel
+    ((1, 64, 16, 4, 128), False, {"flash_fwd": 1}),               # llama_1b
+    ((1, 64, 16, 4, 128), True, {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+])
+def test_attention_dispatch_counts(dev, shape, grad, want):
+    b, s, hq, hkv, d = shape
+    g = torch.Generator(device=dev).manual_seed(d + hq)
+    q, k, v = _bf16((b, s, hq, d), g, dev), _bf16((b, s, hkv, d), g, dev), \
+        _bf16((b, s, hkv, d), g, dev)
+    leaves = [t.requires_grad_(grad) for t in (q, k, v)]
+    before = _counts()
+    out = ta.attention(*leaves, causal=True)
+    if grad:
+        out.float().sum().backward()
+        assert all(torch.isfinite(t.grad).all() for t in leaves)
+    torch.cuda.synchronize()
+    assert _delta(before) == want
+    _close(out.detach(), reference_attention(q.detach(), k.detach(), v.detach(), causal=True))
+
+
+@pytest.mark.parametrize("nh,nkv,d,want", [(4, 2, 32, "paged_attention_plain"),
+                                           (16, 4, 128, "paged_attention")])
+def test_paged_dispatch_counts(dev, nh, nkv, d, want):
+    q, kp, vp, table, lengths = _paged_case(dev, [5, 70, 129], nh, nkv, d, 16, 10, seed=d)
+    before = _counts()
+    out = pd._paged_attention(q[:, None], kp, vp, table, lengths, 1.0, None)
+    torch.cuda.synchronize()
+    assert _delta(before) == {want: 1}
+    _close(out[:, 0], pd._paged_attention_reference(q, kp, vp, table, lengths, 1.0))
+
+
+@pytest.mark.parametrize("hq,hkv,dtype,grad,match", [
+    (16, 4, torch.float32, False, "bfloat16"),               # fp32 at D128
+    (16, 4, torch.float32, True, "bfloat16"),
+    (16, 8, torch.bfloat16, True, "4 q heads per kv head"),  # group 2 with a gradient
+    (28, 4, torch.bfloat16, True, "4 q heads per kv head"),  # group 7 with a gradient
+])
+def test_attention_auto_raises_where_the_kernels_tile_but_do_not_take(dev, hq, hkv, dtype,
+                                                                      grad, match):
+    """A head dim the kernels tile never takes the plain version: a group or
+    dtype they do not take raises, as under impl="flash"."""
+    g = torch.Generator(device=dev).manual_seed(hq)
+    q, k, v = (torch.randn((1, 64, h, 128), generator=g, device=dev).to(dtype)
+               .requires_grad_(grad) for h in (hq, hkv, hkv))
+    before = _counts()
+    with pytest.raises(ValueError, match=match):
+        out = ta.attention(q, k, v, causal=True)
+        out.float().sum().backward()
+    assert not {n: c for n, c in _delta(before).items() if n in PLAINS}
+
+
+def test_paged_dispatch_raises_where_the_kernel_tiles_but_does_not_take(dev):
+    """D128 at group 2 or in fp32: the decode layer and the engine raise; the
+    engine does so when it is built."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    before = _counts()
+    q, kp, vp, table, lengths = _paged_case(dev, [5, 70], 16, 8, 128, 16, 10)
+    with pytest.raises(ValueError, match="nh/n_kv 4"):
+        pd._paged_attention(q[:, None], kp, vp, table, lengths, 1.0, None)
+    q, kp, vp, table, lengths = _paged_case(dev, [5, 70], 16, 4, 128, 16, 10)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pd._paged_attention(q[:, None].float(), kp.float(), vp.float(), table, lengths, 1.0,
+                            None)
+    assert not _delta(before)
+    with pytest.raises(ValueError, match="nh/n_kv 4"):
+        LLMEngine(_kernel_shaped(num_heads=4, num_kv_heads=2), device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        LLMEngine(_kernel_shaped(dtype=torch.float32), device=dev)
+
+
+def test_tiny_engine_on_the_card_matches_the_cpu(dev):
+    """fp32: greedy tokens equal the CPU's; bf16: prefill logits within
+    MODEL_RTOL of the CPU's fp32. Every attention call runs a plain version."""
+    from ray_tpu_torch.models import paged_decode as tpd
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = _tiny(torch.float32)
+    params = llama_init(cfg, 3, "cpu")
+    prompts, n_new = [[3, 14, 15, 92, 65], [1, 2, 3], list(range(20, 45))], 7
+    kw = dict(num_slots=2, decode_chunk=4, max_seq_len=64, prefill_buckets=[16, 32],
+              page_size=16)
+    tokens = {}
+    before = _counts()
+    for where in ("cpu", dev):
+        eng = LLMEngine(cfg, params, device=where, **kw)
+        try:
+            tokens[str(where)] = [eng.generate(p, n_new, timeout=120)["tokens"] for p in prompts]
+        finally:
+            eng.stop()
+    counts = _delta(before)
+    assert tokens["cpu"] == tokens[str(dev)]
+    assert set(counts) == set(PLAINS), counts
+
+    # bf16 prefill on the card against fp32 on the CPU, the same weights
+    bf16 = _tiny(torch.bfloat16)
+    toks = torch.randint(0, 256, (2, 32), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    lens = torch.tensor([32, 19], dtype=torch.int32)
+    pages = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    logits = {}
+    for where, c in (("cpu", cfg), (dev, bf16)):
+        p = {k: (v.to(where, c.dtype) if torch.is_tensor(v)
+                 else {n: w.to(where, c.dtype) for n, w in v.items()}) for k, v in params.items()}
+        cache = tpd.init_paged_cache(c, 5, 16, dtype=c.dtype, device=where)
+        logits[str(where)], _ = tpd.paged_prefill(p, cache, toks.to(where), pages.to(where),
+                                                  lens.to(where), c, 16)
+    assert torch.isfinite(logits[str(dev)]).all()
+    assert _rel(logits[str(dev)], logits["cpu"]) <= MODEL_RTOL
+
+
+def test_deployment_answers_on_the_card(dev):
+    """LLMDeployment()'s defaults: model tiny, bf16, on the card."""
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    before = _counts()
+    dep = LLMDeployment()
+    try:
+        out = dep({"tokens": [5, 6, 7], "max_tokens": 6, "timeout": 120})
+    finally:
+        dep.stop()
+    assert len(out["tokens"]) == 6 and all(0 <= t < 256 for t in out["tokens"])
+    counts = _delta(before)
+    assert set(counts) == set(PLAINS), counts
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
+    """One bf16 train step of tiny on the card (plain attention with autograd
+    through it) against the fp32 step on the CPU from the same weights:
+    loss and grad_norm within MODEL_RTOL."""
+    import numpy as np
+
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.train.step import TrainState, default_optimizer, make_train_step
+
+    opt = default_optimizer(lr=1e-2, warmup_steps=1, total_steps=50)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 64)))
+    targets = torch.roll(tokens, -1, dims=1)
+    weights = llama_init(_tiny(torch.bfloat16), 5, "cpu")
+    metrics = {}
+    for where, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+        cfg = _tiny(dtype, remat=None)
+        params = {k: (v.to(where, dtype) if torch.is_tensor(v)
+                      else {n: w.to(where, dtype) for n, w in v.items()})
+                  for k, v in weights.items()}
+        state = TrainState(step=0, params=params, opt_state=opt.init(params))
+        before = _counts()
+        _, metrics[str(where)] = make_train_step(cfg, opt)(state, tokens.to(where),
+                                                           targets.to(where))
+    assert _delta(before) == {"attention_plain": cfg.num_layers}
+    got, want = metrics[str(dev)], metrics["cpu"]
+    assert abs(got["loss"].item() - want["loss"].item()) <= MODEL_RTOL * abs(want["loss"].item())
+    assert abs(got["grad_norm"].item() - want["grad_norm"].item()) \
+        <= MODEL_RTOL * want["grad_norm"].item()
+
+
+def test_grpo_train_step_on_tiny_on_the_card(dev):
+    import math
+
+    from ray_tpu_torch.rl import GRPOConfig, GRPOTrainer
+
+    def reward(prompt, completion):
+        return sum(1 for t in completion if t < 128) / max(1, len(completion))
+
+    before = _counts()
+    trainer = GRPOTrainer(_tiny(torch.bfloat16, remat=None), reward,
+                          grpo=GRPOConfig(group_size=2, max_new_tokens=8), num_slots=4)
+    try:
+        for _ in range(2):
+            m = trainer.train_step([[1, 2, 3], [9, 8, 7, 6, 5]])
+            assert all(math.isfinite(v) for v in m.values()), m
+    finally:
+        trainer.stop()
+    counts = _delta(before)
+    assert set(counts) == set(PLAINS), counts

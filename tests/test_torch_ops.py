@@ -112,6 +112,40 @@ def test_attention_matches_jax_reference_and_interpret_kernel(b, sq, skv, hq, hk
         np.testing.assert_allclose(got.numpy(), want_flash, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("d,grad,tiles", [
+    (128, False, True),   # llama_1b, serving
+    (128, True, True),    # llama_1b, training
+    (64, False, True),    # ViT's D64: the forward kernel
+    (64, True, False),    # ... but no backward kernel
+    (32, False, False),   # tiny: D32
+    (32, True, False),
+    (256, False, False),
+    (256, True, False),
+])
+def test_flash_dispatch_rule(d, grad, tiles):
+    """Only the head dim decides: a group or dtype the kernels do not take at
+    a head dim they tile goes to the wrappers, which raise."""
+    assert ta.flash_tiles(d, grad) is tiles
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_attention_auto_on_the_cpu_runs_the_plain_wrappers(grad):
+    """CPU tensors go through the wrappers, which run their plain versions:
+    the dispatch rule counts nothing there."""
+    from ray_tpu_torch import _kernels
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g) for s in ((1, 9, 4, 32), (1, 9, 2, 32), (1, 9, 2, 32)))
+    if grad:
+        q.requires_grad_(True)
+    before = dict(_kernels.launch_counts)
+    out = ta.attention(q, k, v, causal=True)
+    assert dict(_kernels.launch_counts) == before
+    torch.testing.assert_close(out, ta.reference_attention(q, k, v, causal=True))
+    if grad:
+        assert out.grad_fn is not None
+
+
 def test_attention_rejects_what_jax_rejects():
     q, k, v = map(_t, _attn_inputs(1, 32, 16, 4, 2, 32))
     with pytest.raises(ValueError, match="Skv >= Sq"):

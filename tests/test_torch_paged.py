@@ -131,6 +131,44 @@ def test_check_page_size(ps, ok):
             tpd.check_page_size(ps)
 
 
+@pytest.mark.parametrize("d,tiles", [(128, True), (256, True), (32, False), (64, False),
+                                     (96, False)])
+def test_paged_dispatch_rule(d, tiles):
+    """The JAX package's rule: head dims off multiples of 128 take the plain
+    version; the others go to the kernel wrapper, which raises on what it
+    does not take."""
+    assert tpd.kernel_tiles(d) is tiles
+
+
+@pytest.mark.parametrize("d,nh,nkv,dtype,match", [
+    (128, 16, 4, torch.bfloat16, None),            # llama_1b
+    (128, 32, 8, torch.bfloat16, None),            # llama3_8b
+    (128, 16, 8, torch.bfloat16, "nh/n_kv 4"),     # group 2
+    (128, 28, 4, torch.bfloat16, "nh/n_kv 4"),     # group 7
+    (256, 16, 4, torch.bfloat16, "D 128"),
+    (128, 16, 4, torch.float32, "bfloat16"),
+])
+def test_check_layer(d, nh, nkv, dtype, match):
+    if match is None:
+        tpd.check_layer(d, nh, nkv, dtype)
+    else:
+        with pytest.raises(ValueError, match=match):
+            tpd.check_layer(d, nh, nkv, dtype)
+
+
+def test_engine_checks_the_page_size_only_where_the_kernel_runs():
+    """A page size the decode kernel cannot load is refused only for a shape
+    the kernel takes: tiny on the CPU runs the plain version at any size."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(TConfig.tiny(dtype=torch.float32), device="cpu", num_slots=1,
+                    max_seq_len=48, page_size=12, prefill_buckets=[24])
+    try:
+        assert len(eng.generate([3, 1, 4, 1, 5], max_tokens=4, timeout=60)["tokens"]) == 4
+    finally:
+        eng.stop()
+
+
 def test_paged_attention_layer_wrapper_matches_jax(models):
     jcfg, _, tcfg, _ = models
     q, kp, vp, table, lengths = _paged_inputs(3)
