@@ -7,7 +7,9 @@ Phases, all of them on every run, in this order:
   device   card name and power limit (nvidia-smi); builds every kernel from
            ray_tpu_torch/csrc/ and prints the build time and ptxas report.
   kernels  each kernel against its plain PyTorch version on the card, in
-           bf16, at the serving and training paths' shapes; max abs error
+           bf16, at the serving and training paths' shapes (K1', K2 and K3
+           also at ViT-L's: head dim 64, one q head per kv head, 196 rows,
+           not causal); max abs error
            against a stated tolerance; kernel, plain, library and bound
            times. Paged attention also at a second shape (4 slots of
            1537..2048 rows), with its time inside a CUDA graph (device_ms)
@@ -31,15 +33,23 @@ Phases, all of them on every run, in this order:
            3 train_steps of 8 prompts x 4 samples x 64 new tokens at
            temperature 1.0 through LLMEngine (32 slots), with exact launch
            counts and the frozen reference policy checked bitwise.
+  vit      ViT-L/16 (ray_tpu_torch.models.vit) at 224 px, all 24 layers, 1000
+           classes, bf16, batch 32, attention_impl "auto" (head dim 64, one q
+           head per kv head, not causal): (a) loss and every gradient, kernels
+           against the plain path; (b) one no-grad forward, the forward kernel
+           once a layer, logits against the plain forward's; (c) 3 warm-up and
+           10 timed steps of make_vit_train_step with adamw(1e-3), each
+           launching the lse forward, dQ and dK/dV kernels once a layer.
 
 Every launch check also requires attention_plain == paged_attention_plain
-== 0: the dispatch rule sends no llama_1b call to a plain version.
+== 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version.
 
 Prints {"kernels": [...]} and the nvidia-smi line before the last line; the
 last line is {"ok": true, "device": {...}} only when every phase passed. Any
 failure exits non-zero and prints no result. Each kernel's launches come
 from the phase whose path runs it (serve: flash_fwd, paged_attention; train:
-flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv). A copy of the results goes to
+flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv; the latter three also carry
+launches_vit, from the vit phase's timed steps). A copy of the results goes to
 build/chip_smoke.json.
 """
 
@@ -54,7 +64,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
-PHASES = ("device", "kernels", "model", "serve", "train", "rl")
+PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -86,6 +96,9 @@ BWD_SRC = "ray_tpu_torch/csrc/flash_bwd.cu"
 PAGED_SRC = "ray_tpu_torch/csrc/paged_attention.cu"
 # the training path's attention shape: llama_1b at batch 8, sequence 2048
 TRAIN_ATTN = (8, 2048, 2048, 16, 4, 128, True)
+# the ViT train step's: ViT-L/16 at 224 px (196 patches), batch 32, 16 heads
+# of 64, not causal
+VIT_ATTN = (32, 196, 196, 16, 16, 64, False)
 # the dispatchers' counts of calls sent to a plain version (_kernels.py)
 PLAIN_COUNTS = ("attention_plain", "paged_attention_plain")
 
@@ -101,7 +114,7 @@ def require(cond: bool, msg: str) -> None:
 
 def require_no_plain(counts, where: str) -> None:
     plain = {n: counts.get(n, 0) for n in PLAIN_COUNTS}
-    require(not any(plain.values()), f"{where}: llama_1b calls ran plain versions: {plain}")
+    require(not any(plain.values()), f"{where}: calls ran plain versions: {plain}")
 
 
 def close_ratio(out, ref) -> float:
@@ -378,35 +391,40 @@ def require_no_launches(counts, where: str) -> None:
 
 
 def _train_attention_kernels(ctx):
-    """K1' (forward with lse), K2 (dQ) and K3 (dK/dV) at the training shape
-    and at two ragged Sq < Skv cases: each against its plain version on the same
-    inputs (the kernels' own lse and delta feed both backward versions)."""
+    """K1' (forward with lse), K2 (dQ) and K3 (dK/dV) at llama_1b's training
+    shape, at two ragged Sq < Skv cases and at ViT-L/16's shape (D64, one q
+    head per kv head, not causal): each against its plain version on the
+    same inputs (the kernels' own lse and delta feed both backward
+    versions). Then each is timed at the two train steps' shapes."""
     import torch
-    import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as ta
 
-    peaks = ctx["peaks"]
     errs = {"k1l": [], "k2": [], "k3": []}
     for i, case in enumerate((TRAIN_ATTN, (2, 100, 300, 16, 4, 128, True),
-                              (2, 300, 700, 16, 4, 128, True))):
+                              (2, 300, 700, 16, 4, 128, True), VIT_ATTN)):
         b, sq, skv, hq, hkv, d, causal = case
         scale = d ** -0.5
         (q, k, v), = _flash_case(torch, b, sq, skv, hq, hkv, d, causal, seed=50 + i)
         g = torch.Generator(device="cuda").manual_seed(60 + i)
         dout = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
-        out, lse = ta.flash_attention_lse(q, k, v, causal)
-        delta = ta._delta(out, dout)
+        out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+        delta = ta._delta(out, dout, out_lo)
         dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
         dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
         torch.cuda.synchronize()
-        for t in (out, lse, dq, dk, dv):
+        for t in (out, lse, out_lo, dq, dk, dv):
             require(bool(torch.isfinite(t).all()), f"attention kernels {case}: non-finite output")
-        ref_out, ref_lse = ta.reference_attention_lse(q, k, v, causal)
+        # out_lo, the rounding residual of out: within half a bf16 ulp of out
+        require(bool((out_lo.float().abs() <= 2 ** -7 * out.float().abs()).all()),
+                f"flash_fwd_lse {case}: out_lo is not out's rounding residual")
+        ref_out, ref_lse, ref_lo = ta.reference_attention_lse(q, k, v, causal)
+        o32, ref_o32 = out.float() + out_lo.float(), ref_out.float() + ref_lo.float()
         checks = [("flash_fwd_lse out", "k1l", out, ref_out, close_ratio(out, ref_out)),
+                  ("flash_fwd_lse out + out_lo", "k1l", o32, ref_o32, close_ratio(o32, ref_o32)),
                   ("flash_fwd_lse lse", "k1l", lse, ref_lse,
                    ((lse - ref_lse).abs() / (LSE_ATOL + LSE_RTOL * ref_lse.abs())).max().item())]
-        del ref_out, ref_lse
+        del ref_out, ref_lse, ref_lo, o32, ref_o32
         ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
         checks.append(("flash_bwd_dq dq", "k2", dq, ref_dq, _grad_ratio(dq, ref_dq)))
         del ref_dq
@@ -416,7 +434,7 @@ def _train_attention_kernels(ctx):
         for what, key, got, ref, ratio in checks:
             err = (got.float() - ref.float()).abs().max().item()
             tol = (f"atol {LSE_ATOL} + rtol {LSE_RTOL} |plain|" if what.endswith("lse") else
-                   f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} |plain|" if what.endswith("out") else
+                   f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} |plain|" if key == "k1l" else
                    f"{GRAD_ATOL} max|plain| + rtol {KERNEL_RTOL} |plain|")
             print(f"{what} {case}: max_abs_err {err:.3e}, worst error / ({tol}) = {ratio:.3f} "
                   "(must be <= 1)", flush=True)
@@ -425,14 +443,38 @@ def _train_attention_kernels(ctx):
         del checks, ref_dk, ref_dv
         torch.cuda.empty_cache()
 
-    b, sq, skv, hq, hkv, d, causal = TRAIN_ATTN
+    meta = {"k1l": ("flash_fwd_lse", FLASH_SRC, "ray_tpu/ops/attention.py:155"),
+            "k2": ("flash_bwd_dq", BWD_SRC, "ray_tpu/ops/attention.py:182"),
+            "k3": ("flash_bwd_dkv", BWD_SRC, "ray_tpu/ops/attention.py:224")}
+    for suffix, shape in (("", TRAIN_ATTN), ("_vit", VIT_ATTN)):
+        timed = _time_train_attention(ctx, shape)
+        for key, (name, src, replaces) in meta.items():
+            ms, plain, lib, bms, by = timed[key]
+            entry = ctx.setdefault(key, {"name": name, "route": "cuda", "source": src,
+                                         "replaces": replaces, "max_abs_err": max(errs[key])})
+            entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain,
+                          f"bound_ms{suffix}": bms, f"bound_by{suffix}": by,
+                          f"library_ms{suffix}": lib, f"shape{suffix}": list(shape)})
+
+
+def _time_train_attention(ctx, shape):
+    """{kernel key: (ms, plain_ms, library_ms, bound_ms, bound_by)} of K1',
+    K2 and K3 at ``shape``; the library yardsticks are SDPA's forward and
+    SDPA's whole backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as ta
+
+    peaks = ctx["peaks"]
+    b, sq, skv, hq, hkv, d, causal = shape
     scale = d ** -0.5
     sets = []
-    for i, (q, k, v) in enumerate(_flash_case(torch, *TRAIN_ATTN, seed=70, copies=2)):
+    for i, (q, k, v) in enumerate(_flash_case(torch, *shape, seed=70, copies=2)):
         g = torch.Generator(device="cuda").manual_seed(80 + i)
         dout = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
-        out, lse = ta.flash_attention_lse(q, k, v, causal)
-        sets.append((q, k, v, dout, lse, ta._delta(out, dout)))
+        out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+        sets.append((q, k, v, dout, lse, ta._delta(out, dout, out_lo)))
     times = {
         "k1l": (cuda_ms(torch, lambda q, k, v, *_: ta.flash_attention_lse(q, k, v, causal), sets),
                 cuda_ms(torch, lambda q, k, v, *_: ta.reference_attention_lse(q, k, v, causal),
@@ -462,26 +504,23 @@ def _train_attention_kernels(ctx):
     pairs = _visible_pairs(sq, skv, causal)
     q_el, kv_el, rows = b * sq * hq * d, b * skv * hkv * d, b * hq * sq
     work = {  # (flops, bytes): each input read once, each output written once
-        "k1l": (4.0 * b * hq * d * pairs, 2.0 * (2 * q_el + 2 * kv_el) + 4.0 * rows),
+        "k1l": (4.0 * b * hq * d * pairs, 2.0 * (3 * q_el + 2 * kv_el) + 4.0 * rows),
         "k2": (6.0 * b * hq * d * pairs, 2.0 * (3 * q_el + 2 * kv_el) + 8.0 * rows),
         "k3": (8.0 * b * hq * d * pairs, 2.0 * (2 * q_el + 4 * kv_el) + 8.0 * rows),
     }
-    meta = {"k1l": ("flash_fwd_lse", FLASH_SRC, "ray_tpu/ops/attention.py:155", sdpa_fwd),
-            "k2": ("flash_bwd_dq", BWD_SRC, "ray_tpu/ops/attention.py:182", sdpa_bwd),
-            "k3": ("flash_bwd_dkv", BWD_SRC, "ray_tpu/ops/attention.py:224", sdpa_bwd)}
-    for key, (name, src, replaces, lib) in meta.items():
-        ms, plain = times[key]
+    names = {"k1l": "flash_fwd_lse", "k2": "flash_bwd_dq", "k3": "flash_bwd_dkv"}
+    result = {}
+    for key, (ms, plain) in times.items():
+        lib = sdpa_fwd if key == "k1l" else sdpa_bwd
         bms, by = bound_ms(*work[key], peaks)
-        ctx[key] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                    "max_abs_err": max(errs[key]), "ms": ms, "plain_ms": plain,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib,
-                    "shape": list(TRAIN_ATTN)}
-        print(f"{name} {TRAIN_ATTN}: {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}: {work[key][0] / 1e9:.1f} GFLOP, "
-              f"{work[key][1] / 1e9:.3f} GB) on {ctx['card']}", flush=True)
-    print(f"library yardsticks: SDPA forward {sdpa_fwd:.4f} ms (for flash_fwd_lse); SDPA "
-          f"backward {sdpa_bwd:.4f} ms computes dq, dk and dv together (for flash_bwd_dq + "
-          f"flash_bwd_dkv: {times['k2'][0] + times['k3'][0]:.4f} ms)", flush=True)
+        result[key] = (ms, plain, lib, bms, by)
+        print(f"{names[key]} {shape}: {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}: {work[key][0] / 1e9:.2f} GFLOP, "
+              f"{work[key][1] / 1e9:.4f} GB) on {ctx['card']}", flush=True)
+    print(f"library yardsticks at {shape}: SDPA forward {sdpa_fwd:.4f} ms (for flash_fwd_lse); "
+          f"SDPA backward {sdpa_bwd:.4f} ms computes dq, dk and dv together (for flash_bwd_dq "
+          f"+ flash_bwd_dkv: {times['k2'][0] + times['k3'][0]:.4f} ms)", flush=True)
+    return result
 
 
 def _llama_1b():
@@ -867,6 +906,163 @@ def phase_rl(ctx):
     torch.cuda.empty_cache()
 
 
+def phase_vit(ctx):
+    import math
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.train.step import adamw
+
+    torch.cuda.empty_cache()
+    # ViT-L/16 as tools/bench_data_train.py trains the JAX one: 224 px (196
+    # patches), 1000 classes, bf16, batch 32, optax.adamw(1e-3); attention
+    # "auto" (the dispatch rule decides); random weights and images from seeds
+    cfg = tv.ViTConfig.vit_l(image_size=224)
+    L, batch = cfg.num_layers, 32
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.random((batch, 224, 224, 3), dtype=np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, batch)).cuda()
+    kernels_step = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+    # (a) loss and every gradient, kernels against the plain path
+    params = tv.vit_init(cfg, seed=0, device="cuda")
+    names, leaves = grad_leaves(params)
+
+    def grads():
+        loss = tv.vit_loss(params, images, labels, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    _kernels.reset_counts()
+    loss_k, grads_k = grads()
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launch_counts)
+    require_no_plain(counts, "vit (a)")
+    require(counts == kernels_step, f"vit (a) launched {counts}, expected {kernels_step}")
+    _kernels.reset_counts()
+    with mock.patch.object(ta, "flash_attention_lse", ta.reference_attention_lse), \
+            mock.patch.object(ta, "flash_bwd", ta.flash_bwd_reference):
+        loss_p, grads_p = grads()
+    torch.cuda.synchronize()
+    require_no_launches(_kernels.launch_counts, "vit (a)")
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"vit (a) ViT-L/16, {L} layers, B{batch} 224 px: loss kernels {loss_k.item():.6f} "
+          f"plain {loss_p.item():.6f}, relative difference {rel_loss:.3e} "
+          f"(tol {TRAIN_LOSS_RTOL})", flush=True)
+    worst = compare_grads(torch, "vit (a)", names, grads_k, grads_p)
+    require(rel_loss <= TRAIN_LOSS_RTOL, f"vit (a) loss disagrees: {rel_loss}")
+    truth = _vit_truth_distances(cfg, params, images, labels, names,
+                                 {"kernels": grads_k, "plain": grads_p})
+    del grads_k, grads_p, leaves
+
+    # (b) one no-grad forward: the forward kernel once a layer, and logits
+    # that agree with the plain forward's
+    _kernels.reset_counts()
+    with torch.no_grad():
+        logits = tv.vit_forward(params, images, cfg)
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launch_counts)
+    require_no_plain(counts, "vit (b)")
+    require(counts == {"flash_fwd": L}, f"vit (b) launched {counts}, expected flash_fwd {L}")
+    with mock.patch.object(ta, "flash_attention",
+                           lambda q, k, v, causal=True, scale=None:
+                           ta.reference_attention(q, k, v, causal, scale)), torch.no_grad():
+        logits_p = tv.vit_forward(params, images, cfg)
+    require(tuple(logits.shape) == (batch, cfg.num_classes) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()), "vit (b): logits of the wrong shape or "
+            "non-finite")
+    rel_logits = ((logits - logits_p).abs().max() / logits_p.abs().max()).item()
+    print(f"vit (b) no-grad forward: logits {tuple(logits.shape)}, max|diff|/max|plain| "
+          f"{rel_logits:.3e} (tol {MODEL_RTOL}), launches {counts}", flush=True)
+    require(rel_logits <= MODEL_RTOL, f"vit (b) logits disagree: {rel_logits}")
+    del params, logits, logits_p
+    torch.cuda.empty_cache()
+
+    # (c) the train step: 3 warm-up steps, then 10 timed
+    step, init = tv.make_vit_train_step(cfg, adamw(1e-3))
+    params, opt_state = init(seed=0, device="cuda")
+    warmup, steps = 3, 10
+    for _ in range(warmup):
+        params, opt_state, loss = step(params, opt_state, images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    per_step = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        before = dict(_kernels.launch_counts)
+        params, opt_state, loss = step(params, opt_state, images, labels)
+        per_step.append((loss, {n: c - before.get(n, 0) for n, c in _kernels.launch_counts.items()
+                                if c != before.get(n, 0)}))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    require_no_plain(launches, "vit (c)")
+    for i, (loss, counts) in enumerate(per_step):
+        print(f"vit (c) step {i}: loss {loss.item():.6f} launches {dict(sorted(counts.items()))}",
+              flush=True)
+        require(math.isfinite(loss.item()), f"vit (c) step {i}: non-finite loss")
+        require(counts == kernels_step, f"vit (c) step {i} launched {counts}, expected "
+                f"{kernels_step} and no other kernel")
+    step_ms, images_s = dt / steps * 1e3, batch * steps / dt
+    peak = torch.cuda.max_memory_allocated()
+    print(f"vit (c) on {ctx['card']} ({ctx['smi']}): ViT-L/16 ({cfg.num_params} params), {L} "
+          f"layers, B{batch} 224 px, adamw(1e-3): {step_ms:.3f} ms/step, {images_s:.1f} "
+          f"images/s, max_memory_allocated {peak / 2**30:.3f} GiB, launches over {steps} steps "
+          f"{launches}", flush=True)
+    ctx["vit"] = {"rel_loss_a": rel_loss, "rel_grad_a": worst, "truth_a": truth,
+                  "rel_logits_b": rel_logits,
+                  "step_ms": step_ms, "images_per_s": images_s, "batch": batch, "steps": steps,
+                  "max_memory_allocated": peak, "launches": launches,
+                  "losses": [loss.item() for loss, _ in per_step]}
+    ctx["vit_launches"] = launches
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+
+def _vit_truth_distances(cfg, params, images, labels, names, paths):
+    """Measurement, no check: each bf16 path's gradients against an fp32
+    truth (the same weights in fp32, autograd through the plain forward),
+    as max|diff|/max|truth| per attention weight. Besides the given paths,
+    the kernels with delta from the bf16 out alone, as the JAX package
+    takes it (no out_lo: the error out_lo removes), and attention_impl
+    "reference" (autograd through the plain softmax in bf16)."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.ops import attention as ta
+
+    def grads(p, c):
+        _, leaves = grad_leaves(p)
+        return torch.autograd.grad(tv.vit_loss(p, images, labels, c), leaves)
+
+    real_bwd = ta.flash_bwd
+    with mock.patch.object(ta, "flash_bwd", lambda q, k, v, out, lse, dout, causal=True,
+                           scale=None, out_lo=None: real_bwd(q, k, v, out, lse, dout, causal,
+                                                             scale)):
+        paths = dict(paths, kernels_delta_from_out=grads(params, cfg))
+    paths["reference"] = grads(params, dataclasses.replace(cfg, attention_impl="reference"))
+    p32 = {k: (v.detach().float() if torch.is_tensor(v)
+               else {n: w.detach().float() for n, w in v.items()}) for k, v in params.items()}
+    truth = grads(p32, dataclasses.replace(cfg, dtype=torch.float32, attention_impl="reference"))
+    del p32
+    out = {}
+    for path, gs in paths.items():
+        out[path] = {n: ((g.float() - t).abs().max() / t.abs().max()).item()
+                     for n, g, t in zip(names, gs, truth) if n.split(".")[-1] in
+                     ("wq", "wk", "wv", "wo", "head")}
+        print(f"vit (a) {path} against the fp32 truth, max|diff|/max|truth|: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in out[path].items()), flush=True)
+    del paths, truth
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -900,7 +1096,12 @@ def main() -> int:
     # launches: each kernel's count from the run of the path it lies on
     runs = {"k1": ctx["launches"], "k1l": ctx["train_launches"], "k2": ctx["train_launches"],
             "k3": ctx["train_launches"], "k4": ctx["launches"]}
-    kernels = [dict(ctx[key], launches=run.get(ctx[key]["name"], 0)) for key, run in runs.items()]
+    kernels = []
+    for key, run in runs.items():
+        entry = dict(ctx[key], launches=run.get(ctx[key]["name"], 0))
+        if key in ("k1l", "k2", "k3"):  # the same kernels in the vit phase's 10 timed steps
+            entry["launches_vit"] = ctx["vit_launches"].get(entry["name"], 0)
+        kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         print(f"chip_smoke: kernels never launched on the main path: {idle}", file=sys.stderr)
@@ -908,7 +1109,7 @@ def main() -> int:
     record = {"card": ctx["card"], "smi": ctx["smi"], "build_s": ctx["build_s"],
               "peaks": ctx["peaks_key"], "kernels": kernels,
               "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
-              "train": ctx["train"], "rl": ctx["rl"]}
+              "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,5 +1,5 @@
-"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model, serving,
-training and RL (GRPO, PPO) paths.
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's models (Llama, ViT),
+serving, training and RL (GRPO, PPO) paths.
 
 Mirrors ``ray_tpu``'s module paths and public names (``ops``, ``models``,
 ``serve.llm``, ``train.step``, ``rl``) so each function has an obvious

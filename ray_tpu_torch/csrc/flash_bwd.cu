@@ -18,27 +18,33 @@
 // Every product takes bf16 operands and accumulates in fp32; dq, dk and dv are
 // written once, in bf16.
 //
-// Bound on the H100: at the training shape (B 8, S 2048, 16 q heads over 4 kv
-// heads, D 128, causal) each S x S x D product over the visible half is 68.7
-// GFLOP; K2 does 3 of them (s, dp, dq) and K3 does 4 (s, dp, dv, dk), so 0.21
-// and 0.28 ms at 989 TFLOP/s, against 0.24 GB and 0.20 GB of inputs and
-// outputs (0.07 and 0.06 ms at 3.35 TB/s): both are bound by the tensor
-// cores. Both kernels therefore follow the forward's design (flash_fwd.cu:
-// a TMA ring, wgmma, every S x S intermediate in registers), with the
-// primitives of sm90.cuh:
+// Bound on the H100: at llama_1b's training shape (B 8, S 2048, 16 q heads
+// over 4 kv heads, D 128, causal) each S x S x D product over the visible
+// half is 68.7 GFLOP; K2 does 3 of them (s, dp, dq) and K3 does 4 (s, dp, dv,
+// dk), so 0.21 and 0.28 ms at 989 TFLOP/s, against 0.24 GB and 0.20 GB of
+// inputs and outputs (0.07 and 0.06 ms at 3.35 TB/s): both are bound by the
+// tensor cores. At ViT-L's (B 32, S 196, 16 heads over 16, D 64, not causal)
+// a product is 2.5 GFLOP and both are bound by bytes (65 and 78 MB, about
+// 0.02 ms each): short rows, one q head per kv head. One design serves both
+// (flash_fwd.cu's: a TMA ring, wgmma, every S x S intermediate in
+// registers), an instance per head dim, with the primitives of sm90.cuh:
 //
 // - 256 threads: two consumer warpgroups (wgmma needs whole, aligned
 //   warpgroups), each owning 64 rows of the block's 128-row tile, and no
 //   producer warp. Registers decide that: a warpgroup keeps its 64 x D fp32
 //   accumulators for the whole loop (K2 dQ, K3 dK and dV) beside a step's
-//   fp32 S and dP (K2: 64 x 128 each; K3's transposes: 64 x 64 each), 192
-//   accumulator registers a thread, about 230 in all. ptxas (nvcc 12.9,
+//   fp32 S and dP (K2: 64 x 128 each; K3's transposes: 64 x 64 each). At D
+//   128 that is 192 accumulator registers a thread, about 230 in all; at D
+//   64, 160 (K2) and 128 (K3). ptxas (nvcc 12.9,
 //   sm_90a) gives these kernels 168 at __launch_bounds__(288, 1) as at
 //   (384, 1), as if the block were rounded up to whole warpgroups, and
 //   allocates the consumer code at 168 whatever setmaxnreg grants (it emits
 //   the instruction, but the consumer spills), so a producer warp or
 //   warpgroup costs 60 registers of every thread. At 256 threads each may
-//   have 255. Thread 0
+//   have 255; ptxas gives K2 221 (D 128) and 189 (D 64), K3 227 (D 128 at
+//   group 4), 226 (D 128) and 163 (D 64), none spilling, so even at D 64 one
+//   block fills an SM's register file.
+//   Thread 0
 //   is the producer as well as a consumer: it issues the block's resident
 //   tiles and the first STAGES slots, and refills each slot once both
 //   warpgroups have released it, STAGES - 1 slots ahead of the math.
@@ -69,11 +75,13 @@
 // K3 (dK/dV): one block per (b, kv head, 128-key tile); grid (Hkv, B, key
 // tiles), so the widest causal key tiles of every (b, kv head) go first and
 // the last wave holds the narrowest. K and V are loaded once. The ring
-// streams, for each of the group's 4 q heads and each 64-row q tile from the
+// streams, for each of the group's q heads and each 64-row q tile from the
 // first one that sees the block's keys, the Q and dO tiles and that tile's
 // lse and delta rows, the last two by 1-D TMA boxes that start at the
 // 16-byte boundary at or before the tile's first row (a row of ragged Sq
-// starts anywhere). S^T = K . Q^T and dP^T = V . dO^T put keys on the
+// starts anywhere; a box that runs past the head's last row reads the next
+// head's rows, or zeros past the array's end, which the mask below
+// discards). S^T = K . Q^T and dP^T = V . dO^T put keys on the
 // accumulator's rows and queries on its columns, so each thread reads the
 // lse and delta of its 16 columns from the slot. dV += P^T . dO and dK +=
 // dS^T . Q read dO and Q as MN-major B. The GQA sum over the group happens in
@@ -84,20 +92,20 @@
 //
 // Layout: q/dO/dq [B, Sq, Hq, D], k/v/dk/dv [B, Skv, Hkv, D], all contiguous
 // bf16 and 16-byte aligned; lse and delta [B, Hq, Sq] fp32, contiguous and
-// 16-byte aligned. Built for D 128 with 4 q heads per kv head only (every
-// configuration on the training path); anything else is refused.
+// 16-byte aligned. D 64 or 128 (a template instance each), any group
+// Hq / Hkv (a run-time value: K2's kv head, K3's walk over the group's q
+// heads; K3 also has llama_1b's D 128 at group 4 as an instance of its
+// own); anything else is refused.
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int D = 128;
-constexpr int GROUP = 4;        // q heads per kv head
-constexpr int SLABS = D / 64;   // 64-column slabs per tile row
 constexpr int STAGES = 2;       // ring depth
 constexpr int NTHREADS = 256;   // two consumer warpgroups; thread 0 also issues the loads
 
-// Bytes of a tile of `rows` rows (D / 64 slabs of rows x 128 bytes).
+// Bytes of a tile of `rows` rows of head dim D (D / 64 slabs of rows x 128 bytes).
+template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) { return rows * D * 2; }
 
 // ---------------------------------------------------------------- K2: dQ ---
@@ -105,50 +113,58 @@ namespace k2 {
 constexpr int BQ = 128;  // query rows per block
 constexpr int BK = 128;  // keys per K/V tile
 // Shared-memory plan; every tile starts on a 1024-byte boundary.
-constexpr uint32_t q_off = 0;
-constexpr uint32_t do_off = q_off + tile_bytes(BQ);
-constexpr uint32_t k_off = do_off + tile_bytes(BQ);
-constexpr uint32_t v_off = k_off + STAGES * tile_bytes(BK);
-constexpr uint32_t bar_off = v_off + STAGES * tile_bytes(BK);
-// barriers: Q and dO, then full_k, full_v and empty for each slot
-constexpr uint32_t bytes = bar_off + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+template <int D>
+struct Smem {
+  static constexpr uint32_t q_off = 0;
+  static constexpr uint32_t do_off = q_off + tile_bytes<D>(BQ);
+  static constexpr uint32_t k_off = do_off + tile_bytes<D>(BQ);
+  static constexpr uint32_t v_off = k_off + STAGES * tile_bytes<D>(BK);
+  static constexpr uint32_t bar_off = v_off + STAGES * tile_bytes<D>(BK);
+  // barriers: Q and dO, then full_k, full_v and empty for each slot
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+};
 }  // namespace k2
 
 // Fill K2's ring slot s with the K and V tiles of keys k0 .. k0 + BK - 1, each
 // on its own barrier, so S = Q.K^T can start before V has landed.
+template <int D>
 __device__ __forceinline__ void k2_load_kv(uint32_t base, int s, const CUtensorMap* tm_k,
                                            const CUtensorMap* tm_v, int hk, int k0, int b) {
   using namespace k2;
-  const uint32_t bar_full_k = base + bar_off + 8 + 8 * s;
-  const uint32_t bar_full_v = base + bar_off + 8 + 8 * STAGES + 8 * s;
-  const uint32_t sK = base + k_off + s * tile_bytes(BK);
-  const uint32_t sV = base + v_off + s * tile_bytes(BK);
-  mbar_expect_tx(bar_full_k, tile_bytes(BK));
+  using SM = Smem<D>;
+  const uint32_t bar_full_k = base + SM::bar_off + 8 + 8 * s;
+  const uint32_t bar_full_v = base + SM::bar_off + 8 + 8 * STAGES + 8 * s;
+  const uint32_t sK = base + SM::k_off + s * tile_bytes<D>(BK);
+  const uint32_t sV = base + SM::v_off + s * tile_bytes<D>(BK);
+  mbar_expect_tx(bar_full_k, tile_bytes<D>(BK));
 #pragma unroll
-  for (int c = 0; c < SLABS; ++c)
+  for (int c = 0; c < D / 64; ++c)
     tma_load(sK + c * BK * ROW, tm_k, bar_full_k, 64 * c, hk, k0, b);
-  mbar_expect_tx(bar_full_v, tile_bytes(BK));
+  mbar_expect_tx(bar_full_v, tile_bytes<D>(BK));
 #pragma unroll
-  for (int c = 0; c < SLABS; ++c)
+  for (int c = 0; c < D / 64; ++c)
     tma_load(sV + c * BK * ROW, tm_v, bar_full_v, 64 * c, hk, k0, b);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do,
                     const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
-                    const float* __restrict__ delta, int Sq, int Skv, int Hq, int causal,
-                    float scale) {
+                    const float* __restrict__ delta, int Sq, int Skv, int Hq, int group,
+                    int causal, float scale) {
   using namespace k2;
+  using SM = Smem<D>;
+  constexpr int SLABS = D / 64;  // 64-column slabs per tile row
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t sQ = base + q_off;
-  const uint32_t sDO = base + do_off;
-  const uint32_t bar_q = base + bar_off;
+  const uint32_t sQ = base + SM::q_off;
+  const uint32_t sDO = base + SM::do_off;
+  const uint32_t bar_q = base + SM::bar_off;
   const uint32_t bar_full_k = bar_q + 8;                // + 8 s
   const uint32_t bar_full_v = bar_full_k + 8 * STAGES;  // + 8 s
   const uint32_t bar_empty = bar_full_v + 8 * STAGES;   // + 8 s
@@ -156,7 +172,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.x;  // the q heads of one kv head are neighbours in launch order
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the widest causal q tiles first
-  const int hk = h / GROUP;
+  const int hk = h / group;
   const int offset = Skv - Sq;  // query row i sits at absolute position offset + i
   // Block-level causal skip: no row of this tile sees a key at or past kv_end.
   const int kv_end = causal ? min(Skv, q0 + BQ + offset) : Skv;
@@ -173,14 +189,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(bar_empty + 8 * s, NTHREADS);  // every consumer thread releases the slot
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(bar_q, 2 * tile_bytes(BQ));
+    mbar_expect_tx(bar_q, 2 * tile_bytes<D>(BQ));
 #pragma unroll
     for (int c = 0; c < SLABS; ++c) {
       tma_load(sQ + c * BQ * ROW, &tm_q, bar_q, 64 * c, h, q0, b);
       tma_load(sDO + c * BQ * ROW, &tm_do, bar_q, 64 * c, h, q0, b);
     }
     for (int j = 0; j < min(STAGES, n_tiles); ++j)
-      k2_load_kv(base, j, &tm_k, &tm_v, hk, j * BK, b);
+      k2_load_kv<D>(base, j, &tm_k, &tm_v, hk, j * BK, b);
   }
   __syncthreads();
 
@@ -216,8 +232,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % STAGES;
     const uint32_t parity = (j / STAGES) & 1;
-    const uint32_t sK = base + k_off + s * tile_bytes(BK);
-    const uint32_t sV = base + v_off + s * tile_bytes(BK);
+    const uint32_t sK = base + SM::k_off + s * tile_bytes<D>(BK);
+    const uint32_t sV = base + SM::v_off + s * tile_bytes<D>(BK);
     const int k0 = j * BK;
     mbar_wait(bar_full_k + 8 * s, parity);
     if (active && j < wg_tiles) {
@@ -270,7 +286,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < BK / 16; ++kt)
-        wgmma_rs_n128(acc, a[kt], smem_desc(sK + kt * 16 * ROW, BK * ROW, 1024));
+        wgmma_rs<D>(acc, a[kt], smem_desc(sK + kt * 16 * ROW, BK * ROW, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -282,7 +298,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int next = j + STAGES;
     if (threadIdx.x == 0 && next < n_tiles) {
       mbar_wait(bar_empty + 8 * s, parity);
-      k2_load_kv(base, s, &tm_k, &tm_v, hk, next * BK, b);
+      k2_load_kv<D>(base, s, &tm_k, &tm_v, hk, next * BK, b);
     }
     __syncwarp();  // warp 0 meets again before its next wgmma
   }
@@ -290,7 +306,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   // ---- epilogue: dQ through this warpgroup's own rows of the Q tile ------
   if (!active) return;
   const float one[2] = {1.f, 1.f};
-  stage_bf16<D>(smem + q_off, BQ * ROW, 64 * w, acc, one);
+  stage_bf16<D>(smem + SM::q_off, BQ * ROW, 64 * w, acc, one);
   warpgroup_sync_for_tma(w);
   if (t == 0) {
 #pragma unroll
@@ -304,19 +320,22 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 namespace k3 {
 constexpr int BK = 128;  // keys per block
 constexpr int BQ = 64;   // query rows per ring slot
-constexpr uint32_t k_off = 0;
-constexpr uint32_t v_off = k_off + tile_bytes(BK);
-constexpr uint32_t q_off = v_off + tile_bytes(BK);            // + s * tile_bytes(BQ)
-constexpr uint32_t do_off = q_off + STAGES * tile_bytes(BQ);  // + s * tile_bytes(BQ)
 // per slot: ROW_BOX floats of lse, then (at + 512 bytes) ROW_BOX of delta. A
 // TMA box starts on a 16-byte boundary, so a slot's rows q0 .. q0 + 63 start
 // 0-3 floats into its box.
 constexpr int ROW_BOX = BQ + 4;
-constexpr uint32_t row_off = do_off + STAGES * tile_bytes(BQ);
 constexpr uint32_t row_bytes = 1024;
-constexpr uint32_t bar_off = row_off + STAGES * row_bytes;
-// barriers: K and V, then full and empty for each slot
-constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+template <int D>
+struct Smem {
+  static constexpr uint32_t k_off = 0;
+  static constexpr uint32_t v_off = k_off + tile_bytes<D>(BK);
+  static constexpr uint32_t q_off = v_off + tile_bytes<D>(BK);            // + s * tile_bytes(BQ)
+  static constexpr uint32_t do_off = q_off + STAGES * tile_bytes<D>(BQ);  // + s * tile_bytes(BQ)
+  static constexpr uint32_t row_off = do_off + STAGES * tile_bytes<D>(BQ);
+  static constexpr uint32_t bar_off = row_off + STAGES * row_bytes;
+  // barriers: K and V, then full and empty for each slot
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
 }  // namespace k3
 
 // The flat index of row q0 of q head h in the [B, Hq, Sq] lse and delta.
@@ -328,20 +347,23 @@ __device__ __forceinline__ int k3_row(int b, int h, int q0, int Hq, int Sq) {
 // delta rows of q head h, rows q0 .. q0 + 63, all on the slot's one barrier.
 // The lse and delta boxes start at the 16-byte boundary at or before row q0.
 // Rows past Sq belong to the next head (or read as zero past the array's
-// end): finite, and masked like the zero rows of Q and dO.
+// end): finite (every row sees at least one key, so every lse is finite),
+// and masked like the zero rows of Q and dO.
+template <int D>
 __device__ __forceinline__ void k3_load_slot(uint32_t base, int s, const CUtensorMap* tm_q,
                                              const CUtensorMap* tm_do,
                                              const CUtensorMap* tm_lse,
                                              const CUtensorMap* tm_delta, int h, int q0, int b,
                                              int Hq, int Sq) {
   using namespace k3;
-  const uint32_t bar = base + bar_off + 8 + 8 * s;
-  const uint32_t sQ = base + q_off + s * tile_bytes(BQ);
-  const uint32_t sDO = base + do_off + s * tile_bytes(BQ);
-  const uint32_t sRows = base + row_off + s * row_bytes;
-  mbar_expect_tx(bar, 2 * tile_bytes(BQ) + 2 * ROW_BOX * 4);
+  using SM = Smem<D>;
+  const uint32_t bar = base + SM::bar_off + 8 + 8 * s;
+  const uint32_t sQ = base + SM::q_off + s * tile_bytes<D>(BQ);
+  const uint32_t sDO = base + SM::do_off + s * tile_bytes<D>(BQ);
+  const uint32_t sRows = base + SM::row_off + s * row_bytes;
+  mbar_expect_tx(bar, 2 * tile_bytes<D>(BQ) + 2 * ROW_BOX * 4);
 #pragma unroll
-  for (int c = 0; c < SLABS; ++c) {
+  for (int c = 0; c < D / 64; ++c) {
     tma_load(sQ + c * BQ * ROW, tm_q, bar, 64 * c, h, q0, b);
     tma_load(sDO + c * BQ * ROW, tm_do, bar, 64 * c, h, q0, b);
   }
@@ -350,6 +372,10 @@ __device__ __forceinline__ void k3_load_slot(uint32_t base, int s, const CUtenso
   tma_load_1d(sRows + row_bytes / 2, tm_delta, bar, start);
 }
 
+// GROUP > 0 fixes the group at compile time (llama_1b's D 128 at 4, which a
+// run-time group made 1.4% slower on the H100, the two timed in turns by
+// attention_times.py); 0 takes it from group_arg.
+template <int D, int GROUP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -359,16 +385,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_dv,
                      const __grid_constant__ CUtensorMap tm_lse,
                      const __grid_constant__ CUtensorMap tm_delta, int Sq, int Skv, int Hq,
-                     int causal, float scale) {
+                     int group_arg, int causal, float scale) {
   using namespace k3;
+  const int group = GROUP > 0 ? GROUP : group_arg;
+  using SM = Smem<D>;
+  constexpr int SLABS = D / 64;  // 64-column slabs per tile row
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t sK = base + k_off;
-  const uint32_t sV = base + v_off;
-  const float* rows = reinterpret_cast<const float*>(smem + row_off);  // + s * row_bytes / 4
-  const uint32_t bar_kv = base + bar_off;
+  const uint32_t sK = base + SM::k_off;
+  const uint32_t sV = base + SM::v_off;
+  const float* rows = reinterpret_cast<const float*>(smem + SM::row_off);  // + s * row_bytes / 4
+  const uint32_t bar_kv = base + SM::bar_off;
   const uint32_t bar_full = bar_kv + 8;              // + 8 s
   const uint32_t bar_empty = bar_full + 8 * STAGES;  // + 8 s
 
@@ -382,7 +411,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   // k0: i >= k0 - offset (the JAX kernel's `first`, floored at 0).
   const int first = causal && k0 > offset ? (k0 - offset) / BQ : 0;
   const int per_head = (Sq + BQ - 1) / BQ - first;
-  const int n_iters = GROUP * per_head;  // the ring runs on across head boundaries
+  const int n_iters = group * per_head;  // the ring runs on across head boundaries
 
   // Thread 0 is the producer as well as a consumer: it issues K, V and the
   // first STAGES slots here, and each later slot once every consumer has
@@ -394,15 +423,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(bar_empty + 8 * s, NTHREADS);  // every consumer thread releases the slot
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(bar_kv, 2 * tile_bytes(BK));
+    mbar_expect_tx(bar_kv, 2 * tile_bytes<D>(BK));
 #pragma unroll
     for (int c = 0; c < SLABS; ++c) {
       tma_load(sK + c * BK * ROW, &tm_k, bar_kv, 64 * c, hk, k0, b);
       tma_load(sV + c * BK * ROW, &tm_v, bar_kv, 64 * c, hk, k0, b);
     }
     for (int it = 0; it < min(STAGES, n_iters); ++it)
-      k3_load_slot(base, it, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * GROUP + it / per_head,
-                   (first + it % per_head) * BQ, b, Hq, Sq);
+      k3_load_slot<D>(base, it, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * group + it / per_head,
+                      (first + it % per_head) * BQ, b, Hq, Sq);
   }
   __syncthreads();
 
@@ -423,12 +452,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   mbar_wait(bar_kv, 0);
   for (int it = 0; it < n_iters; ++it) {
-    const int h = hk * GROUP + it / per_head;
+    const int h = hk * group + it / per_head;
     const int q0 = (first + it % per_head) * BQ;
     const int s = it % STAGES;
     const uint32_t parity = (it / STAGES) & 1;
-    const uint32_t sQ = base + q_off + s * tile_bytes(BQ);
-    const uint32_t sDO = base + do_off + s * tile_bytes(BQ);
+    const uint32_t sQ = base + SM::q_off + s * tile_bytes<D>(BQ);
+    const uint32_t sDO = base + SM::do_off + s * tile_bytes<D>(BQ);
     mbar_wait(bar_full + 8 * s, parity);
     // A q tile whose last row sees none of this warpgroup's keys is skipped.
     if (active && !(causal && q0 + BQ - 1 + offset < kw0)) {
@@ -486,10 +515,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < BQ / 16; ++kt)
-        wgmma_rs_n128(dv, pa[kt], smem_desc(sDO + kt * 16 * ROW, BQ * ROW, 1024));
+        wgmma_rs<D>(dv, pa[kt], smem_desc(sDO + kt * 16 * ROW, BQ * ROW, 1024));
 #pragma unroll
       for (int kt = 0; kt < BQ / 16; ++kt)
-        wgmma_rs_n128(dk, da[kt], smem_desc(sQ + kt * 16 * ROW, BQ * ROW, 1024));
+        wgmma_rs<D>(dk, da[kt], smem_desc(sQ + kt * 16 * ROW, BQ * ROW, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(dv);
@@ -503,8 +532,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int next = it + STAGES;
     if (threadIdx.x == 0 && next < n_iters) {
       mbar_wait(bar_empty + 8 * s, parity);
-      k3_load_slot(base, s, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * GROUP + next / per_head,
-                   (first + next % per_head) * BQ, b, Hq, Sq);
+      k3_load_slot<D>(base, s, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * group + next / per_head,
+                      (first + next % per_head) * BQ, b, Hq, Sq);
     }
     __syncwarp();  // warp 0 meets again before its next wgmma
   }
@@ -512,8 +541,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   // ---- epilogue: dK and dV through this warpgroup's own rows of K and V --
   if (active) {
     const float one[2] = {1.f, 1.f};
-    stage_bf16<D>(smem + k_off, BK * ROW, 64 * w, dk, one);
-    stage_bf16<D>(smem + v_off, BK * ROW, 64 * w, dv, one);
+    stage_bf16<D>(smem + SM::k_off, BK * ROW, 64 * w, dk, one);
+    stage_bf16<D>(smem + SM::v_off, BK * ROW, 64 * w, dv, one);
     warpgroup_sync_for_tma(w);
     if (t == 0) {
 #pragma unroll
@@ -527,19 +556,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 int check_shape(int B, int Sq, int Skv, int Hq, int Hkv, int Dim) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0) return (int)cudaErrorInvalidValue;
-  if (Dim != D || Hq != GROUP * Hkv) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq <= 0) return (int)cudaErrorInvalidValue;
+  if ((Dim != 64 && Dim != 128) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dq, int B, int Sq,
-                                 int Skv, int Hq, int Hkv, int Dim, int causal, float scale,
-                                 void* stream) {
-  int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
-  if (err) return err;
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+              float scale, cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
@@ -549,23 +574,21 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
       !make_map(encode, &tm_do, dout, B, Sq, Hq, D, k2::BQ) ||
       !make_map(encode, &tm_dq, dq, B, Sq, Hq, D, 64))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)k2::bytes);
+  auto kern = flash_bwd_dq_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)k2::Smem<D>::bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(Hq, B, (Sq + k2::BQ - 1) / k2::BQ);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, k2::bytes, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, NTHREADS, k2::Smem<D>::bytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), Sq, Skv, Hq, causal, scale);
+      static_cast<const float*>(delta), Sq, Skv, Hq, Hq / Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
-extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, void* dk, void* dv, int B,
-                                  int Sq, int Skv, int Hq, int Hkv, int Dim, int causal,
-                                  float scale, void* stream) {
-  int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
-  if (err) return err;
+template <int D, int GROUP>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
+               int causal, float scale, cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, tm_lse, tm_delta;
@@ -579,14 +602,46 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
       !make_map(encode, &tm_dk, dk, B, Skv, Hkv, D, 64) ||
       !make_map(encode, &tm_dv, dv, B, Skv, Hkv, D, 64))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)k3::bytes);
+  auto kern = flash_bwd_dkv_kernel<D, GROUP>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)k3::Smem<D>::bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(Hkv, B, (Skv + k3::BK - 1) / k3::BK);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, k3::bytes, static_cast<cudaStream_t>(stream)>>>(
-      tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, tm_lse, tm_delta, Sq, Skv, Hq, causal, scale);
+  kern<<<grid, NTHREADS, k3::Smem<D>::bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, tm_lse, tm_delta, Sq, Skv, Hq, Hq / Hkv, causal,
+      scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dq, int B, int Sq,
+                                 int Skv, int Hq, int Hkv, int Dim, int causal, float scale,
+                                 void* stream) {
+  int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
+  if (err) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dim == 128)
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st);
+  return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st);
+}
+
+extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* delta, void* dk, void* dv, int B,
+                                  int Sq, int Skv, int Hq, int Hkv, int Dim, int causal,
+                                  float scale, void* stream) {
+  int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
+  if (err) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dim == 128 && Hq == 4 * Hkv)
+    return launch_dkv<128, 4>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
+                              scale, st);
+  if (Dim == 128)
+    return launch_dkv<128, 0>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
+                              scale, st);
+  return launch_dkv<64, 0>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, scale,
+                           st);
 }
 
 extern "C" const char* kernel_error_string(int err) {

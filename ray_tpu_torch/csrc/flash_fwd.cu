@@ -8,8 +8,12 @@
 // j that row i may see (j < Skv, and j <= i + Skv - Sq when causal: the queries
 // sit after the cached keys, bottom-right alignment), with q head h reading kv
 // head h / (Hq / Hkv). Optionally lse[b, h, i] = m + log(l) (fp32, natural
-// log), the residual the training backward needs; the serving path passes a
-// null pointer.
+// log) and out_lo = o - bf16(o) (bf16, out's layout), where o is the output
+// before its rounding to bf16: the residuals the training backward needs.
+// Its delta = rowsum(dO * O) must match the sum over keys of p * dP that its
+// own p and dP carry; from the bf16 output alone it misses by the rounding
+// of O, which with keys that share a large common part (ViT's patches) moved
+// dQ and dK by several percent. The serving path passes null pointers.
 //
 // Bound on the H100: with causal masking and 4 q heads per kv head it does about
 // S * 0.4 flops per byte moved (~205 at S 512), under the card's ~295 bf16
@@ -41,14 +45,16 @@
 //   loop; the rescale by exp(m_old - m_new) is a multiply on registers.
 // - Epilogue: O / l in bf16 is staged through the warpgroup's own rows of the
 //   Q tile (swizzled, conflict-free) and written by a TMA store, which clips
-//   the rows past Sq; lse is written from registers.
+//   the rows past Sq; lse is written from registers; out_lo goes through
+//   the same rows after the output's store has read them.
 // - Launch order: the q heads of one kv head are neighbours (their K/V reads
 //   meet in L2) and the widest causal q tiles go first.
 // Not done: a persistent grid, softmax overlapped with the next product, and
 // ping-pong scheduling of the two consumer warpgroups.
 //
-// Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], out [B, Sq, Hq, D], all
-// contiguous bf16 and 16-byte aligned; lse [B, Hq, Sq] fp32. D 64 or 128.
+// Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], out and out_lo [B, Sq, Hq,
+// D], all contiguous bf16 and 16-byte aligned; lse [B, Hq, Sq] fp32. D 64 or
+// 128.
 // Grid (Hq, B, ceil(Sq / 128)).
 
 #include "sm90.cuh"
@@ -75,19 +81,13 @@ struct Smem {
   static constexpr uint32_t bytes = bar_off + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
 };
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc) {
-  if constexpr (D == 128) wgmma_rs_n128(o, a, desc);
-  else wgmma_rs_n64(o, a, desc);
-}
-
 // The accumulator layout the softmax reads is set out in sm90.cuh.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
-                 float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int causal,
-                 float scale) {
+                 const __grid_constant__ CUtensorMap tm_olo, float* __restrict__ lse, int Sq,
+                 int Skv, int Hq, int Hkv, int causal, float scale) {
   using SM = Smem<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -232,7 +232,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < BK / 16; ++kt)
-        wgmma_pv<D>(o, p[kt], smem_desc(sV + kt * 16 * ROW, BK * ROW, 1024));
+        wgmma_rs<D>(o, p[kt], smem_desc(sV + kt * 16 * ROW, BK * ROW, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -258,7 +258,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         tma_store(&tm_o, sQ + c * BQ * ROW + 64 * w * ROW, 64 * c, h, qw0, b);
       tma_store_wait();
     }
-    if (lse != nullptr && lane % 4 == 0) {
+    if (lse == nullptr) return;
+    // The training forward: out_lo through the same rows, once the output's
+    // store has read them.
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+    stage_bf16<D, true>(smem, BQ * ROW, 64 * w, o, inv);
+    warpgroup_sync_for_tma(w);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < SM::SLABS; ++c)
+        tma_store(&tm_olo, sQ + c * BQ * ROW + 64 * w * ROW, 64 * c, h, qw0, b);
+      tma_store_wait();
+    }
+    if (lane % 4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = qw0 + row0 + 8 * r;
@@ -269,22 +281,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
-           int Skv, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, void* out_lo, int B,
+           int Sq, int Skv, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o, tm_olo;
   if (!make_map(encode, &tm_q, q, B, Sq, Hq, D, BQ) ||
       !make_map(encode, &tm_k, k, B, Skv, Hkv, D, BK) ||
       !make_map(encode, &tm_v, v, B, Skv, Hkv, D, BK) ||
-      !make_map(encode, &tm_o, out, B, Sq, Hq, D, 64))
+      !make_map(encode, &tm_o, out, B, Sq, Hq, D, 64) ||
+      !make_map(encode, &tm_olo, lse != nullptr ? out_lo : out, B, Sq, Hq, D, 64))
     return (int)cudaErrorInvalidValue;
   auto kern = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<D>::bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
-  kern<<<grid, NTHREADS, Smem<D>::bytes, stream>>>(tm_q, tm_k, tm_v, tm_o,
+  kern<<<grid, NTHREADS, Smem<D>::bytes, stream>>>(tm_q, tm_k, tm_v, tm_o, tm_olo,
                                                    static_cast<float*>(lse), Sq, Skv, Hq, Hkv,
                                                    causal, scale);
   return (int)cudaGetLastError();
@@ -292,14 +305,18 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 
 }  // namespace
 
+// lse and out_lo: both null (serving) or both set (training).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
-                              int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-                              float scale, void* stream) {
+                              void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                              int causal, float scale, void* stream) {
   if (B <= 0 || Sq <= 0) return (int)cudaSuccess;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if ((lse == nullptr) != (out_lo == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, scale, st);
-  if (D == 64) return launch<64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, scale, st);
+  if (D == 128)
+    return launch<128>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st);
+  if (D == 64)
+    return launch<64>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

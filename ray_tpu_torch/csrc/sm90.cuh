@@ -138,6 +138,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The rounding residuals x - bf16(x) of a pair, packed to bf16: the pair is
+// pack_bf16's plus these to about 16 bits of mantissa.
+__device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi) {
+  const float2 r = __bfloat1622float2(__floats2bfloat162_rn(lo, hi));
+  return pack_bf16(lo - r.x, hi - r.y);
+}
+
 // d (+)= A . B, A [64 x 16] and B [16 x 128] both K-major from shared memory.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                              int accumulate) {
@@ -216,12 +223,24 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d += A . B with B [16 x N] MN-major, N the head dim (64 or 128): the product
+// whose width is a template parameter (P.V, dS.K, P^T.dO, dS^T.Q).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "wgmma_rs takes N 64 or 128");
+  if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
+  else wgmma_rs_n64(d, a, desc_b);
+}
+
 // Write a warpgroup's m64nN fp32 accumulator, row half r times mul[r], as
 // bf16 into rows row_base .. row_base + 63 of a tile in the slab layout (slabs
-// slab_bytes apart): the swizzled layout a TMA store reads. Each thread
-// writes 4 bytes into each 16-byte chunk of a row, and the 8 rows a warp
-// writes at once fall into 8 different chunks, so the stores do not conflict.
-template <int N>
+// slab_bytes apart): the swizzled layout a TMA store reads. RESIDUAL writes
+// the rounding residuals of those values instead (pack_bf16_residual). Each
+// thread writes 4 bytes into each 16-byte chunk of a row, and the 8 rows a
+// warp writes at once fall into 8 different chunks, so the stores do not
+// conflict.
+template <int N, bool RESIDUAL = false>
 __device__ __forceinline__ void stage_bf16(unsigned char* tile, uint32_t slab_bytes, int row_base,
                                            const float (&acc)[N / 2], const float (&mul)[2]) {
   const int lane = threadIdx.x % 32;
@@ -233,8 +252,9 @@ __device__ __forceinline__ void stage_bf16(unsigned char* tile, uint32_t slab_by
       const int row = row0 + 8 * r;
       const uint32_t off = (jn / 8) * slab_bytes + row * ROW + (((jn % 8) ^ (row % 8)) * 16) +
                            (lane % 4) * 4;
+      const float x0 = acc[4 * jn + 2 * r] * mul[r], x1 = acc[4 * jn + 2 * r + 1] * mul[r];
       *reinterpret_cast<uint32_t*>(tile + off) =
-          pack_bf16(acc[4 * jn + 2 * r] * mul[r], acc[4 * jn + 2 * r + 1] * mul[r]);
+          RESIDUAL ? pack_bf16_residual(x0, x1) : pack_bf16(x0, x1);
     }
   }
 }

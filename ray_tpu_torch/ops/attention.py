@@ -4,22 +4,33 @@ the plain versions beside the kernels.
 Port of ray_tpu/ops/attention.py.
 
 - ``reference_attention`` and ``reference_attention_lse`` are the plain
-  PyTorch forward in fp32 (the second also returns the row log-sum-exp);
+  PyTorch forward in fp32 (the second also returns the row log-sum-exp and
+  the output's rounding residual);
   ``flash_bwd_reference`` is the backward recurrence of the two backward
   kernels written out in fp32. They are the CPU path and the yardsticks the
   kernels are held against on the card.
 - ``flash_attention`` wraps the forward kernel (``csrc/flash_fwd.cu``): bf16,
-  head_dim 64 or 128. Given an ``lse`` buffer it also writes the row
-  log-sum-exp, the residual the backward needs; it counts the two uses
-  apart, as ``flash_fwd`` and ``flash_fwd_lse``.
+  head_dim 64 or 128; ``flash_attention_lse`` runs the same kernel for the
+  training path, which also writes the row log-sum-exp and ``out_lo``, the
+  rounding residual ``o - bf16(o)`` of the output. The two count apart, as
+  ``flash_fwd`` and ``flash_fwd_lse``.
 - ``flash_bwd`` wraps the two backward kernels (``csrc/flash_bwd.cu``): dQ
-  (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 128 with
-  4 q heads per kv head only. ``delta = rowsum(dO * O)`` is computed here in
-  fp32, outside the kernels, as the JAX package computes it.
+  (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 64 or 128,
+  any number of q heads per kv head. ``delta = rowsum(dO * O)`` is computed
+  here in fp32, outside the kernels, as the JAX package computes it, but
+  from ``out + out_lo``: ``delta`` has to equal the sum over keys of
+  ``p * dP`` that the backward's own ``p`` and ``dP`` carry, and the bf16
+  output alone misses it by its rounding. Keys that share a large common
+  part multiply that miss into dq and dk: in a bf16 ViT-L/16 train step on
+  an H100 (224 px, batch 32, random weights) it moved the wq and wk
+  gradients by 6.1-6.6% of their largest element against fp32; with the
+  residual they are 1.1% off, as close as autograd through the plain
+  softmax (1.1-1.3%; chip_smoke.py's vit phase prints each path).
 - ``flash_attention_with_grad`` is the op with a gradient: the custom op
-  ``ray_tpu_torch::flash_attn`` returns (out, lse), and its registered
-  autograd saves exactly ``q, k, v, out, lse``, as ``_flash_attention_fwd``
-  does, and runs ``flash_bwd``. Being a dispatcher op, it is what selective
+  ``ray_tpu_torch::flash_attn`` returns (out, lse, out_lo), and its
+  registered autograd saves exactly ``q, k, v, out, lse, out_lo`` (the JAX
+  package's ``_flash_attention_fwd`` residuals and the output's rounding
+  residual) and runs ``flash_bwd``. Being a dispatcher op, it is what selective
   checkpointing can pin (``models/llama.py`` ``remat="save_attn"``), so the
   backward never re-runs the forward kernel.
 - ``attention(impl=...)`` dispatches: ``"auto"`` and ``"flash"`` go through
@@ -30,11 +41,10 @@ The dispatch rule of ``"auto"`` on the card is ``flash_tiles``, decided
 before any launch from the head dim alone, as the JAX package takes its
 reference path for what its kernel does not tile: CUDA tensors of a head dim
 the kernels tile go to the wrappers; CUDA tensors of another head dim (the
-forward kernel tiles 64 and 128; with a gradient the backward kernels run
-too, and they tile 128 only) go to ``reference_attention``, with autograd
-through it, and each such call adds one to
-``launch_counts["attention_plain"]``. A head dim the kernels tile at a GQA
-group or dtype they do not take raises in the wrapper, as it does under
+forward and backward kernels both tile 64 and 128) go to
+``reference_attention``, with autograd through it, and each such call adds
+one to ``launch_counts["attention_plain"]``. A head dim the kernels tile in
+a dtype or layout they do not take raises in the wrapper, as it does under
 ``"flash"``, which means the kernel or an error. This is no fallback on
 failure: a kernel that fails to build or to launch raises. On a CUDA tensor
 each wrapper launches its kernel or raises on input the kernel does not
@@ -59,9 +69,9 @@ from ray_tpu_torch import _kernels
 
 NEG_INF = -1e30
 FWD_LIB, BWD_LIB = "flash_fwd", "flash_bwd"
-# What the kernels take: the forward these head dims, the backward one head
-# dim at one GQA group; all of them bf16 only.
-FWD_DIMS, BWD_DIM, BWD_GROUP = (64, 128), 128, 4
+# The head dims the kernels take, forward and backward alike, at any GQA
+# group (Hq % Hkv == 0); bf16 only.
+KERNEL_DIMS = (64, 128)
 PLAIN = "attention_plain"
 
 
@@ -93,20 +103,24 @@ def reference_attention(q, k, v, causal: bool = True, scale: Optional[float] = N
 
 
 def reference_attention_lse(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """The plain forward that also returns lse [B, Hq, Sq] (fp32)."""
+    """The plain forward that also returns lse [B, Hq, Sq] (fp32) and out_lo,
+    the rounding residual of out (0 in fp32): (out, lse, out_lo)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = _masked_logits(q, k, causal, scale)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.exp(logits - lse[..., None])
     v = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out.to(q.dtype), lse
+    out32 = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    out = out32.to(q.dtype)
+    return out, lse, (out32 - out.float()).to(q.dtype)
 
 
-def _delta(out, dout):
-    """delta[b, h, i] = sum_d dO * O in fp32 (the softmax-Jacobian row term)."""
-    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+def _delta(out, dout, out_lo=None):
+    """delta[b, h, i] = sum_d dO * O in fp32 (the softmax-Jacobian row term),
+    O = out + out_lo when the forward's rounding residual is given."""
+    o = out.float() if out_lo is None else out.float() + out_lo.float()
+    return (dout.float() * o).sum(-1).transpose(1, 2).contiguous()
 
 
 def _ds_and_p(q, k, v, lse, delta, dout, causal: bool, scale: float):
@@ -138,12 +152,13 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool, scale: floa
 
 
 def flash_bwd_reference(q, k, v, out, lse, dout, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, out_lo=None):
     """The plain backward, in fp32: (dq, dk, dv) from the forward's residuals
-    and the output gradient. lse: [B, Hq, Sq]."""
+    and the output gradient. lse: [B, Hq, Sq]; out_lo: out's rounding
+    residual (None: delta from out alone, as the JAX package takes it)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    delta = _delta(out, dout)
+    delta = _delta(out, dout, out_lo)
     dq = flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
     dk, dv = flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
     return dq, dk, dv
@@ -163,50 +178,53 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal attention requires Skv >= Sq, got {skv} < {sq}")
 
 
-def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
-                    lse: Optional[torch.Tensor] = None):
-    """Forward kernel wrapper. q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D],
-    Hq % Hkv == 0.
+def _launch_fwd(q, k, v, causal: bool, scale: float, training: bool):
+    """One launch of the forward kernel on CUDA tensors: (out, lse, out_lo),
+    the last two None unless ``training``."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    _check_cuda_inputs("flash_fwd", KERNEL_DIMS, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = out_lo = None
+    if training:
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        out_lo = torch.empty_like(q)
+    lib = _kernels.library(FWD_LIB)
+    fn = lib.flash_fwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
+             ctypes.c_void_p(lse.data_ptr() if training else None),
+             ctypes.c_void_p(out_lo.data_ptr() if training else None),
+             b, sq, skv, hq, hkv, d, int(causal), float(scale), _kernels.stream_of(q))
+    name = "flash_fwd_lse" if training else "flash_fwd"
+    _kernels.check(lib, err, name)
+    _kernels.launch_counts[name] += 1
+    return out, lse, out_lo
 
-    On the card, ``lse`` may be a preallocated fp32 [B, Hq, Sq] tensor that
-    receives the row log-sum-exp (the residual a backward needs)."""
+
+def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """Forward kernel wrapper (K1): out [B, Sq, Hq, D]. q: [B, Sq, Hq, D];
+    k/v: [B, Skv, Hkv, D], Hq % Hkv == 0."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     _check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
-        if lse is not None:
-            raise ValueError("lse output is produced by the CUDA kernel only")
         return reference_attention(q, k, v, causal, scale)
-    b, sq, hq, d = q.shape
-    _, skv, hkv, _ = k.shape
-    _check_cuda_inputs("flash_fwd", FWD_DIMS, q=q, k=k, v=v)
-    if lse is not None and (lse.dtype != torch.float32 or lse.shape != (b, hq, sq)
-                            or not lse.is_contiguous() or lse.device != q.device):
-        raise ValueError("lse must be a contiguous float32 [B, Hq, Sq] tensor on q's device")
-    out = torch.empty_like(q)
-    lib = _kernels.library(FWD_LIB)
-    fn = lib.flash_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
-             ctypes.c_void_p(lse.data_ptr() if lse is not None else None),
-             b, sq, skv, hq, hkv, d, int(causal), float(scale), _kernels.stream_of(q))
-    name = "flash_fwd" if lse is None else "flash_fwd_lse"
-    _kernels.check(lib, err, name)
-    _kernels.launch_counts[name] += 1
-    return out
+    return _launch_fwd(q, k, v, causal, scale, training=False)[0]
 
 
 def flash_attention_lse(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """(out, lse [B, Hq, Sq] fp32): the kernel with lse on the card, the plain
-    forward on the CPU."""
+    """The training forward (K1'): (out, lse [B, Hq, Sq] fp32, out_lo), the
+    kernel on the card and the plain forward on the CPU. out_lo (out's shape
+    and dtype) is out's rounding residual, from which the backward takes
+    delta."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    _check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
-        _check_shapes(q, k, v, causal)
         return reference_attention_lse(q, k, v, causal, scale)
-    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
-    return flash_attention(q, k, v, causal, scale, lse=lse), lse
+    return _launch_fwd(q, k, v, causal, scale, training=True)
 
 
 def _check_cuda_inputs(kernel: str, dims, **tensors) -> None:
@@ -255,10 +273,7 @@ def _check_bwd_inputs(q, k, v, dout, lse, delta, causal: bool) -> None:
     _check_shapes(q, k, v, causal)
     if dout.shape != q.shape:
         raise ValueError(f"dout shape {tuple(dout.shape)} != q shape {tuple(q.shape)}")
-    _check_cuda_inputs("flash_bwd", (BWD_DIM,), q=q, k=k, v=v, dout=dout)
-    if q.shape[2] != BWD_GROUP * k.shape[2]:
-        raise ValueError(f"flash_bwd kernels take {BWD_GROUP} q heads per kv head, got "
-                         f"{q.shape[2]} over {k.shape[2]}")
+    _check_cuda_inputs("flash_bwd", KERNEL_DIMS, q=q, k=k, v=v, dout=dout)
     b, sq, hq, _ = q.shape
     _check_rows(b, hq, sq, q.device, lse=lse, delta=delta)
 
@@ -282,17 +297,19 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
     return dk, dv
 
 
-def flash_bwd(q, k, v, out, lse, dout, causal: bool = True, scale: Optional[float] = None):
+def flash_bwd(q, k, v, out, lse, dout, causal: bool = True, scale: Optional[float] = None,
+              out_lo=None):
     """Backward kernels' wrapper: (dq, dk, dv). On the card it launches K2 and
-    K3; on the CPU it runs the plain backward."""
+    K3; on the CPU it runs the plain backward. out_lo: out's rounding
+    residual from flash_attention_lse (None: delta from out alone)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         _check_shapes(q, k, v, causal)
-        return flash_bwd_reference(q, k, v, out, lse, dout, causal, scale)
-    if out.shape != q.shape:
+        return flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, out_lo)
+    if out.shape != q.shape or (out_lo is not None and out_lo.shape != q.shape):
         raise ValueError(f"out shape {tuple(out.shape)} != q shape {tuple(q.shape)}")
-    delta = _delta(out, dout)
+    delta = _delta(out, dout, out_lo)
     dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
     return dq, dk, dv
@@ -303,21 +320,20 @@ def flash_bwd(q, k, v, out, lse, dout, causal: bool = True, scale: Optional[floa
 # --------------------------------------------------------------------------- #
 @torch.library.custom_op("ray_tpu_torch::flash_attn", mutates_args=())
 def _flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                   scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return flash_attention_lse(q, k, v, causal, scale)
 
 
 def _setup_context(ctx, inputs, output):
     q, k, v, causal, scale = inputs
-    out, lse = output
-    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.save_for_backward(q, k, v, *output)
     ctx.causal, ctx.scale = causal, scale
 
 
-def _backward(ctx, dout, _dlse):
-    # lse feeds only this op's own backward, so its gradient is ignored
-    q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.scale)
+def _backward(ctx, dout, _dlse, _dlo):
+    # lse and out_lo feed only this op's own backward, so their gradients are ignored
+    q, k, v, out, lse, out_lo = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.scale, out_lo)
     return dq, dk, dv, None, None
 
 
@@ -337,11 +353,11 @@ def flash_attention_with_grad(q, k, v, causal: bool = True, scale: Optional[floa
 
 def flash_tiles(head_dim: int, grad: bool) -> bool:
     """The dispatch rule of ``attention(impl="auto")`` on the card: whether
-    the kernels tile this head dim. The forward kernel tiles 64 and 128; with
-    a gradient (``grad``) the backward kernels also run, and they tile 128
-    only. Group and dtype are no part of the rule: the wrappers raise on
-    those they do not take."""
-    return head_dim == BWD_DIM if grad else head_dim in FWD_DIMS
+    the kernels tile this head dim, without a gradient (the forward kernel)
+    or with one (``grad``: the backward kernels run too). Both directions
+    tile 64 and 128. Group, dtype and layout are no part of the rule: the
+    wrappers raise on those they do not take."""
+    return head_dim in KERNEL_DIMS
 
 
 def attention(q, k, v, causal: bool = True, scale: Optional[float] = None, impl: str = "auto"):

@@ -4,14 +4,20 @@
 ``chain(clip_by_global_norm(grad_clip), adamw(warmup_cosine_decay_schedule))``
 written out in PyTorch, so that both frameworks take the same update from
 the same state (``torch.optim.AdamW`` and ``clip_grad_norm_`` differ: the
-latter divides by ``norm + 1e-6``, optax by ``norm``):
+latter divides by ``norm + 1e-6``, optax by ``norm``); ``adamw`` is plain
+``optax.adamw(learning_rate)`` (a constant rate, no clipping, ``b2`` 0.999,
+weight decay 1e-4), which drives the ViT (``models/vit.py``). Both run one
+update loop (``AdamWConstant.update_``). ``default_optimizer`` adds:
 
 - the schedule rises linearly from 0 to ``lr`` over ``warmup_steps``, then
   follows a cosine down to ``lr * 0.1`` at ``max(total_steps,
   warmup_steps + 1)``; it is read at the update count *before* the update,
   so update 0 runs at lr 0;
 - clipping scales every gradient by ``grad_clip / g_norm`` only when
-  ``g_norm >= grad_clip``;
+  ``g_norm >= grad_clip``.
+
+Both:
+
 - AdamW: ``b1``, ``b2``, ``eps`` 1e-8, ``eps_root`` 0, bias correction, then
   ``update = -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``; weight decay
   applies to every leaf, with no mask;
@@ -28,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,11 +69,64 @@ class TrainState:
     opt_state: AdamWState
 
 
-EPS, EPS_ROOT = 1e-8, 0.0  # optax.adamw's defaults, which default_optimizer keeps
+EPS, EPS_ROOT = 1e-8, 0.0  # optax.adamw's defaults, which both optimizers keep
 
 
 @dataclasses.dataclass(frozen=True)
-class AdamW:
+class AdamWConstant:
+    """``optax.adamw(lr, b1, b2, weight_decay=weight_decay)``: a constant
+    learning rate, clipped to global norm ``grad_clip`` first unless it is
+    None (optax.adamw alone does not clip)."""
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    grad_clip: Optional[float] = None
+
+    def schedule(self, count: int) -> float:
+        return self.lr
+
+    def init(self, params) -> AdamWState:
+        return AdamWState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
+
+    @torch.no_grad()
+    def update_(self, grads: List[torch.Tensor], state: AdamWState, params) -> torch.Tensor:
+        """One update, in place on params and state. ``grads`` in the order of
+        ``_leaves(params)``. Returns the global norm of the unclipped
+        gradients (the step's ``grad_norm``)."""
+        g_norm = global_norm(grads)
+        clip = self.grad_clip is not None
+        keep = g_norm < self.grad_clip if clip else None
+        count = state.count + 1
+        f32 = dict(dtype=torch.float32)
+        bc1 = 1 - torch.tensor(self.b1, **f32) ** count
+        bc2 = 1 - torch.tensor(self.b2, **f32) ** count
+        step_size = torch.tensor(-self.schedule(state.count), **f32)
+        for g, p, mu, nu in zip(grads, _leaves(params), _leaves(state.mu), _leaves(state.nu)):
+            if clip:
+                g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip)
+            mu.mul_(self.b1).add_((1 - self.b1) * g)
+            nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
+            mu_hat = mu / bc1.to(device=mu.device, dtype=mu.dtype)
+            nu_hat = nu / bc2.to(device=nu.device, dtype=nu.dtype)
+            u = mu_hat / (torch.sqrt(nu_hat + EPS_ROOT) + EPS)
+            u = u + self.weight_decay * p
+            p.add_(step_size.to(device=u.device, dtype=u.dtype) * u)
+        state.count = count
+        return g_norm
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          weight_decay: float = 1e-4) -> AdamWConstant:
+    """The counterpart of ``optax.adamw(learning_rate, b1, b2,
+    weight_decay=weight_decay)``, with optax's defaults."""
+    return AdamWConstant(lr=learning_rate, weight_decay=weight_decay, b1=b1, b2=b2)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW(AdamWConstant):
+    """``default_optimizer``'s: the same update on the warmup-cosine schedule,
+    after the global-norm clip."""
     lr: float = 3e-4
     weight_decay: float = 0.1
     b1: float = 0.9
@@ -89,33 +148,6 @@ class AdamW:
         cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(decay_steps)))
         alpha = 0.1
         return float(f32(lr) * (f32(1 - alpha) * cosine + f32(alpha)))
-
-    def init(self, params) -> AdamWState:
-        return AdamWState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
-
-    @torch.no_grad()
-    def update_(self, grads: List[torch.Tensor], state: AdamWState, params) -> torch.Tensor:
-        """One update, in place on params and state. ``grads`` in the order of
-        ``_leaves(params)``. Returns the global norm of the unclipped
-        gradients (the step's ``grad_norm``)."""
-        g_norm = global_norm(grads)
-        keep = g_norm < self.grad_clip
-        count = state.count + 1
-        f32 = dict(dtype=torch.float32)
-        bc1 = 1 - torch.tensor(self.b1, **f32) ** count
-        bc2 = 1 - torch.tensor(self.b2, **f32) ** count
-        step_size = torch.tensor(-self.schedule(state.count), **f32)
-        for g, p, mu, nu in zip(grads, _leaves(params), _leaves(state.mu), _leaves(state.nu)):
-            g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip)
-            mu.mul_(self.b1).add_((1 - self.b1) * g)
-            nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
-            mu_hat = mu / bc1.to(device=mu.device, dtype=mu.dtype)
-            nu_hat = nu / bc2.to(device=nu.device, dtype=nu.dtype)
-            u = mu_hat / (torch.sqrt(nu_hat + EPS_ROOT) + EPS)
-            u = u + self.weight_decay * p
-            p.add_(step_size.to(device=u.device, dtype=u.dtype) * u)
-        state.count = count
-        return g_norm
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -65,11 +65,16 @@ def test_flash_fwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
     q, k, v = _bf16((b, sq, hq, d), g, dev), _bf16((b, skv, hkv, d), g, dev), \
         _bf16((b, skv, hkv, d), g, dev)
     before = _kernels.launch_counts["flash_fwd_lse"]
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    out = flash_attention(q, k, v, causal=causal, lse=lse)
+    out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["flash_fwd_lse"] == before + 1
-    _close(out, reference_attention(q, k, v, causal=causal))
+    ref_out, _, ref_lo = ta.reference_attention_lse(q, k, v, causal=causal)
+    _close(out, ref_out)
+    # out_lo: out's rounding residual, within half a bf16 ulp of out, and
+    # out + out_lo the output before rounding
+    assert out_lo.dtype == torch.bfloat16 and out_lo.shape == out.shape
+    assert (out_lo.float().abs() <= 2 ** -7 * out.float().abs()).all()
+    _close(out.float() + out_lo.float(), ref_out.float() + ref_lo.float())
     # lse against the plain log-sum-exp of the masked, scaled logits
     kr = k.float().repeat_interleave(hq // hkv, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * d ** -0.5
@@ -88,8 +93,8 @@ def test_flash_fwd_is_deterministic(dev, d):
         _bf16((2, 700, 2, d), g, dev)
     runs = [ta.flash_attention_lse(q, k, v, causal=True) for _ in range(2)]
     torch.cuda.synchronize()
-    assert torch.equal(runs[0][0], runs[1][0])
-    assert torch.equal(runs[0][1], runs[1][1])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_fwd_rejects_what_it_does_not_take(dev):
@@ -258,6 +263,20 @@ BWD_CASES = [
     (3, 200, 200, 16, 4, 128, True),     # a map that ignored the batch would read the next one
     (2, 300, 700, 16, 4, 128, True),     # offset 400: not a tile multiple
     (1, 1, 2048, 4, 1, 128, True),       # one query row against many key tiles
+    # D128 at groups 1 and 2
+    (2, 196, 196, 4, 4, 128, False),     # group 1, ViT's 196 patches
+    (1, 129, 129, 8, 4, 128, True),      # group 2, one row past a tile
+    (1, 1, 200, 6, 6, 128, True),        # group 1, one query row
+    # D64 (ViT: 768 / 12, 1024 / 16) at groups 1, 2 and 4
+    (32, 196, 196, 16, 16, 64, False),   # ViT-L/16 at 224 px, batch 32
+    (2, 196, 196, 4, 4, 64, False),      # group 1: 4 q tiles of 64 rows, the last 4 rows
+    (3, 196, 196, 12, 12, 64, False),    # ViT-B's 12 heads; the lse boxes cross heads
+    (2, 196, 196, 8, 2, 64, False),      # group 4
+    (1, 77, 77, 4, 2, 64, True),         # group 2, ragged causal
+    (2, 100, 300, 8, 8, 64, True),       # group 1, Sq < Skv (bottom-right causal)
+    (1, 255, 255, 8, 4, 64, True),       # group 2, one row short of two tiles
+    (1, 1, 65, 4, 1, 64, True),          # group 4, one query row
+    (1, 1, 196, 2, 2, 64, False),        # group 1, one query row, not causal
 ]
 
 
@@ -267,27 +286,28 @@ def test_flash_bwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
     q, k, v = _bf16((b, sq, hq, d), g, dev), _bf16((b, skv, hkv, d), g, dev), \
         _bf16((b, skv, hkv, d), g, dev)
     dout = _bf16((b, sq, hq, d), g, dev)
-    out, lse = ta.flash_attention_lse(q, k, v, causal)
+    out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
     before = {n: _kernels.launch_counts[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
-    dq, dk, dv = ta.flash_bwd(q, k, v, out, lse, dout, causal)
+    dq, dk, dv = ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo)
     torch.cuda.synchronize()
     assert all(_kernels.launch_counts[n] == c + 1 for n, c in before.items())
-    want = ta.flash_bwd_reference(q, k, v, out, lse, dout, causal)
+    want = ta.flash_bwd_reference(q, k, v, out, lse, dout, causal, out_lo=out_lo)
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         _close_grad(got, ref)
 
 
-def test_flash_bwd_is_deterministic(dev):
+@pytest.mark.parametrize("hkv,d,causal", [(4, 128, True), (16, 64, False)])
+def test_flash_bwd_is_deterministic(dev, hkv, d, causal):
     """Two launches on the same inputs give bitwise-equal dq, dk and dv: the
     kernels sum in a fixed order (the GQA group in registers), with no
     atomics."""
     g = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = _bf16((2, 300, 16, 128), g, dev), _bf16((2, 700, 4, 128), g, dev), \
-        _bf16((2, 700, 4, 128), g, dev)
-    dout = _bf16((2, 300, 16, 128), g, dev)
-    out, lse = ta.flash_attention_lse(q, k, v, True)
-    runs = [ta.flash_bwd(q, k, v, out, lse, dout, True) for _ in range(2)]
+    q, k, v = _bf16((2, 300, 16, d), g, dev), _bf16((2, 700, hkv, d), g, dev), \
+        _bf16((2, 700, hkv, d), g, dev)
+    dout = _bf16((2, 300, 16, d), g, dev)
+    out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+    runs = [ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -300,11 +320,11 @@ def test_flash_bwd_rejects_what_it_does_not_take(dev):
         lse = torch.zeros(b, hq, sq, device=dev)
         return q, k, k, q, lse, q
     with pytest.raises(ValueError, match="head_dim"):
-        ta.flash_bwd(*case(1, 64, 8, 2, 64))
+        ta.flash_bwd(*case(1, 64, 8, 2, 32))
     with pytest.raises(ValueError, match="bfloat16"):
-        ta.flash_bwd(*case(1, 64, 8, 2, 128, torch.float32))
-    with pytest.raises(ValueError, match="4 q heads per kv head"):
-        ta.flash_bwd(*case(1, 64, 8, 4, 128))
+        ta.flash_bwd(*case(1, 64, 8, 2, 64, torch.float32))
+    with pytest.raises(ValueError, match="multiple"):
+        ta.flash_bwd(*case(1, 64, 8, 3, 128))
 
 
 @pytest.mark.parametrize("b,sq,skv,causal", [(2, 256, 256, True), (1, 96, 160, True),
@@ -363,7 +383,8 @@ def _rel(a, b):
 @pytest.mark.parametrize("shape,grad,want", [
     ((1, 64, 4, 2, 32), False, {"attention_plain": 1}),          # tiny
     ((1, 64, 4, 2, 32), True, {"attention_plain": 1}),
-    ((1, 64, 12, 12, 64), True, {"attention_plain": 1}),         # D64: no backward kernel
+    ((1, 64, 12, 12, 64), True, {"flash_fwd_lse": 1, "flash_bwd_dq": 1,
+                                 "flash_bwd_dkv": 1}),            # ViT-B's D64, group 1
     ((1, 64, 16, 4, 128), False, {"flash_fwd": 1}),               # llama_1b
     ((1, 64, 16, 4, 128), True, {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
 ])
@@ -394,18 +415,18 @@ def test_paged_dispatch_counts(dev, nh, nkv, d, want):
     _close(out[:, 0], pd._paged_attention_reference(q, kp, vp, table, lengths, 1.0))
 
 
-@pytest.mark.parametrize("hq,hkv,dtype,grad,match", [
-    (16, 4, torch.float32, False, "bfloat16"),               # fp32 at D128
-    (16, 4, torch.float32, True, "bfloat16"),
-    (16, 8, torch.bfloat16, True, "4 q heads per kv head"),  # group 2 with a gradient
-    (28, 4, torch.bfloat16, True, "4 q heads per kv head"),  # group 7 with a gradient
+@pytest.mark.parametrize("hq,hkv,d,dtype,grad,match", [
+    (16, 4, 128, torch.float32, False, "bfloat16"),   # fp32 at D128
+    (16, 4, 128, torch.float32, True, "bfloat16"),
+    (16, 6, 128, torch.bfloat16, True, "multiple"),   # Hq % Hkv != 0, with a gradient
+    (12, 8, 64, torch.bfloat16, False, "multiple"),   # ... and at D64 without one
 ])
-def test_attention_auto_raises_where_the_kernels_tile_but_do_not_take(dev, hq, hkv, dtype,
+def test_attention_auto_raises_where_the_kernels_tile_but_do_not_take(dev, hq, hkv, d, dtype,
                                                                       grad, match):
-    """A head dim the kernels tile never takes the plain version: a group or
-    dtype they do not take raises, as under impl="flash"."""
+    """A head dim the kernels tile never takes the plain version: a dtype or
+    a head split they do not take raises, as under impl="flash"."""
     g = torch.Generator(device=dev).manual_seed(hq)
-    q, k, v = (torch.randn((1, 64, h, 128), generator=g, device=dev).to(dtype)
+    q, k, v = (torch.randn((1, 64, h, d), generator=g, device=dev).to(dtype)
                .requires_grad_(grad) for h in (hq, hkv, hkv))
     before = _counts()
     with pytest.raises(ValueError, match=match):
@@ -518,6 +539,59 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(dev):
     assert abs(got["loss"].item() - want["loss"].item()) <= MODEL_RTOL * abs(want["loss"].item())
     assert abs(got["grad_norm"].item() - want["grad_norm"].item()) \
         <= MODEL_RTOL * want["grad_norm"].item()
+
+
+def _small_vit(dtype):
+    """A ViT of ViT-B's attention shape (head dim 64, one q head per kv
+    head), small: hidden 128, 2 heads, 2 layers, 64 px in patches of 8."""
+    from ray_tpu_torch.models.vit import ViTConfig
+
+    return ViTConfig(image_size=64, patch_size=8, hidden_size=128, intermediate_size=256,
+                     num_layers=2, num_heads=2, num_classes=10, dtype=dtype)
+
+
+def test_small_vit_train_step_on_the_card_matches_the_cpu(dev):
+    """Loss and gradients of a bf16 step on the card, through K1', K2 and K3
+    once a layer, against fp32 on the CPU from the same weights: the loss
+    and the global gradient norm within MODEL_RTOL; then one
+    make_vit_train_step update and a no-grad forward through K1."""
+    import numpy as np
+
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.train.step import _leaves, adamw, global_norm
+
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.random((4, 64, 64, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, (4,)))
+    weights = tv.vit_init(_small_vit(torch.float32), seed=9, device="cpu")
+    got = {}
+    for where, dtype in (("cpu", torch.float32), (dev, torch.bfloat16)):
+        cfg = _small_vit(dtype)
+        params = {k: (v.to(where, dtype) if torch.is_tensor(v)
+                      else {n: w.to(where, dtype) for n, w in v.items()})
+                  for k, v in weights.items()}
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        before = _counts()
+        loss = tv.vit_loss(params, images.to(where), labels.to(where), cfg)
+        got[str(where)] = (loss.item(), global_norm(torch.autograd.grad(loss, leaves)).item())
+    L = cfg.num_layers
+    assert _delta(before) == {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    (loss_c, norm_c), (loss_g, norm_g) = got["cpu"], got[str(dev)]
+    assert abs(loss_g - loss_c) <= MODEL_RTOL * abs(loss_c)
+    assert abs(norm_g - norm_c) <= MODEL_RTOL * norm_c
+
+    step, init = tv.make_vit_train_step(cfg, adamw(1e-3))
+    params, opt_state = init(seed=9, device=dev)
+    before = _counts()
+    params, opt_state, loss = step(params, opt_state, images.to(dev), labels.to(dev))
+    with torch.no_grad():
+        logits = tv.vit_forward(params, images.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and torch.isfinite(logits).all() and opt_state.count == 1
+    assert _delta(before) == {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                              "flash_fwd": L}
 
 
 def test_grpo_train_step_on_tiny_on_the_card(dev):

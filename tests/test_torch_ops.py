@@ -116,15 +116,15 @@ def test_attention_matches_jax_reference_and_interpret_kernel(b, sq, skv, hq, hk
     (128, False, True),   # llama_1b, serving
     (128, True, True),    # llama_1b, training
     (64, False, True),    # ViT's D64: the forward kernel
-    (64, True, False),    # ... but no backward kernel
+    (64, True, True),     # ... and the backward kernels
     (32, False, False),   # tiny: D32
     (32, True, False),
     (256, False, False),
     (256, True, False),
 ])
 def test_flash_dispatch_rule(d, grad, tiles):
-    """Only the head dim decides: a group or dtype the kernels do not take at
-    a head dim they tile goes to the wrappers, which raise."""
+    """Only the head dim decides: a dtype or layout the kernels do not take
+    at a head dim they tile goes to the wrappers, which raise."""
     assert ta.flash_tiles(d, grad) is tiles
 
 
@@ -305,8 +305,9 @@ def test_flash_lse_and_backward_reference_match_jax_interpret(b, sq, skv, hq, hk
     q, k, v = _attn_inputs(b, sq, skv, hq, hkv, d, seed=1)
     g = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
     jout, jlse, jgrads = _jax_flash_fwd_bwd(q, k, v, g, causal)
-    out, lse = ta.flash_attention_lse(_t(q), _t(k), _t(v), causal)
+    out, lse, out_lo = ta.flash_attention_lse(_t(q), _t(k), _t(v), causal)
     assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    assert not out_lo.any()  # fp32 rounds nothing
     np.testing.assert_allclose(out.numpy(), jout, atol=5e-5)
     np.testing.assert_allclose(lse.numpy(), jlse, atol=5e-5)
     # the plain backward from JAX's own residuals
@@ -330,6 +331,81 @@ def test_flash_op_gradients_match_jax_custom_vjp(b, sq, skv, hq, hkv, d, causal)
         (ta.attention(tq, tk, tv, causal=causal, impl=impl) * _t(g)).sum().backward()
         for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+# ViT's attention (models/vit.py): head dim 64, one q head per kv head, not
+# causal. At S64 with blocks of 32 the Pallas kernels run in interpret mode;
+# at ViT-L/16's 196 patches JAX's flash_attention takes its reference path
+# (Pallas needs whole blocks), so the port is held against
+# reference_attention and autograd through it there. The file's 2e-5.
+VIT_ATTN_TOL = 2e-5
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 64, 4), (2, 196, 4)])
+def test_vit_attention_forward_lse_and_backward_match_jax(b, s, h):
+    q, k, v = _attn_inputs(b, s, s, h, h, 64, seed=5)
+    g = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    scale = 64 ** -0.5
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    with jax.default_matmul_precision("highest"):
+        if s % 32 == 0:
+            jout, jlse = j_attn._flash_fwd(jq, jk, jv, False, scale, 32, 32, True, with_lse=True)
+            jgrads = j_attn._flash_bwd(jq, jk, jv, jout, jlse, jg, False, scale, 32, 32, True)
+            jlse = jlse[..., 0]
+        else:
+            jout = j_reference_attention(jq, jk, jv, causal=False)
+            logits = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * scale
+            jlse = jax.nn.logsumexp(logits, axis=-1)
+            jgrads = jax.grad(lambda q, k, v: (j_reference_attention(
+                q, k, v, causal=False) * jg).sum(), argnums=(0, 1, 2))(jq, jk, jv)
+    out, lse, _ = ta.flash_attention_lse(_t(q), _t(k), _t(v), causal=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=VIT_ATTN_TOL,
+                               rtol=VIT_ATTN_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=VIT_ATTN_TOL,
+                               rtol=VIT_ATTN_TOL)
+    # the plain backward (the kernels' yardstick) and the op with a gradient
+    grads = ta.flash_bwd(_t(q), _t(k), _t(v), out, lse, _t(g), causal=False)
+    tq, tk, tv = _leaf(q), _leaf(k), _leaf(v)
+    (ta.attention(tq, tk, tv, causal=False) * _t(g)).sum().backward()
+    for got, op_got, want in zip(grads, (tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=VIT_ATTN_TOL,
+                                   rtol=VIT_ATTN_TOL)
+        np.testing.assert_allclose(op_got.numpy(), np.asarray(want), atol=VIT_ATTN_TOL,
+                                   rtol=VIT_ATTN_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_out_lo_keeps_delta_consistent_in_bf16(seed):
+    """bf16 inputs whose keys and values share a large common part, as ViT's
+    patches do. out + out_lo is the forward's output before its rounding to
+    bf16, and the backward's delta from it matches the softmax's own: dq, dk
+    and dv within bf16 rounding of autograd through the plain forward in
+    fp32. From the bf16 out alone (the JAX package's delta) dq misses by
+    about half its largest element."""
+    rng = np.random.default_rng(seed)
+    b, s, h, d = 2, 196, 2, 64
+    common = rng.standard_normal((1, 1, h, d)) * 2
+    arrays = (rng.standard_normal((b, s, h, d)),
+              rng.standard_normal((b, s, h, d)) * 0.5 + common,
+              rng.standard_normal((b, s, h, d)) * 0.5 + common,
+              rng.standard_normal((b, s, h, d)))
+    q, k, v, g = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16) for a in arrays)
+    out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal=False)
+    assert out_lo.dtype == torch.bfloat16 and out_lo.any()
+    out32 = ta.reference_attention(q.float(), k.float(), v.float(), causal=False)
+    scale = out32.abs().max()
+    assert (out.float() + out_lo.float() - out32).abs().max() <= 2 ** -16 * scale
+    assert (out.float() - out32).abs().max() >= 2 ** -10 * scale
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ta.reference_attention(*leaves, causal=False).backward(g.float())
+
+    def err(got, want):
+        return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+    for got, leaf in zip(ta.flash_bwd(q, k, v, out, lse, g, False, out_lo=out_lo), leaves):
+        assert err(got, leaf.grad) <= 2 ** -8  # the gradients' own rounding to bf16
+    dq_alone = ta.flash_bwd(q, k, v, out, lse, g, False)[0]
+    assert err(dq_alone, leaves[0].grad) >= 0.1
 
 
 def test_flash_backward_rejects_what_jax_rejects():
