@@ -40,9 +40,25 @@ Phases, all of them on every run, in this order:
            once a layer, logits against the plain forward's; (c) 3 warm-up and
            10 timed steps of make_vit_train_step with adamw(1e-3), each
            launching the lse forward, dQ and dK/dV kernels once a layer.
+  mesh     the port's mesh (ray_tpu_torch.parallel) at world size 1, on NCCL:
+           (a) make_mesh(MeshConfig()) on cuda, and the first collective on
+           it and on a seven-dim mesh of size-1 dims; (b) llama_1b (22
+           layers, bf16, save_attn, attention "auto") loss and every
+           gradient through llama_loss(..., mesh=mesh) against the unsharded
+           port, B2 S2048; (c) make_train_step(mesh=mesh) at B8 S2048, 3
+           warm-up and 5 timed steps, each launching the lse forward, dQ and
+           dK/dV kernels exactly once a layer, in turns with the unsharded
+           step on the same tensors (ms a step; then one step of each under
+           torch.profiler: the device's busy time and the host's top ops);
+           (d) ulysses_attention_sharded with the port's attention at
+           llama_1b's heads, B8 S2048: one flash_fwd launch, against the
+           plain attention; (e) moe_apply at llama_1b's widths (hidden 2048,
+           ffn 8192, 8 experts, top-2, 16384 tokens) in bf16 against the
+           same call in fp32 on the bf16-rounded inputs.
 
 Every launch check also requires attention_plain == paged_attention_plain
-== 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version.
+== 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version,
+and under the mesh the attention reaches the kernels through local_map.
 
 Prints {"kernels": [...]} and the nvidia-smi line before the last line; the
 last line is {"ok": true, "device": {...}} only when every phase passed. Any
@@ -56,6 +72,7 @@ build/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -64,7 +81,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
-PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit")
+PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -101,6 +118,15 @@ TRAIN_ATTN = (8, 2048, 2048, 16, 4, 128, True)
 VIT_ATTN = (32, 196, 196, 16, 16, 64, False)
 # the dispatchers' counts of calls sent to a plain version (_kernels.py)
 PLAIN_COUNTS = ("attention_plain", "paged_attention_plain")
+# Sharded against unsharded llama_1b loss at world size 1 (mesh (b)): the
+# same kernels on the same bf16 tensors; the loss passes through the
+# sharded CE's per-rank sum and count, so allow rounding of a mean over 4096
+# tokens, far under one bf16 ulp.
+MESH_LOSS_RTOL = 1e-3
+# MoE in bf16 against fp32 on the same bf16-rounded inputs (mesh (e)): max
+# abs difference relative to the largest fp32 output; bf16 products over
+# hidden 2048 and ffn 8192 leave a few bf16 ulps (2^-8 = 3.9e-3 each).
+MOE_RTOL = 5e-2
 
 
 class PhaseError(RuntimeError):
@@ -1063,6 +1089,252 @@ def _vit_truth_distances(cfg, params, images, labels, names, paths):
     return out
 
 
+def _mesh_first_collective(torch, mesh) -> float:
+    """Seconds to the first placement on ``mesh`` and back to a whole tensor."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    t0 = time.perf_counter()
+    x = distribute_tensor(torch.ones(4, 4, device="cuda"), mesh, [Replicate()] * mesh.ndim)
+    x.full_tensor()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_mesh(ctx):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER, MeshConfig, make_mesh
+
+    torch.cuda.empty_cache()
+    # (a) a process group of world size 1 on NCCL, and the port's mesh on it
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(MeshConfig())
+        built = time.perf_counter() - t0
+        first = _mesh_first_collective(torch, mesh)
+        t0 = time.perf_counter()
+        mesh7 = DeviceMesh("cuda", [[[[[[[0]]]]]]], mesh_dim_names=AXIS_ORDER)
+        built7 = time.perf_counter() - t0
+        first7 = _mesh_first_collective(torch, mesh7)
+        print(f"mesh (a): make_mesh(MeshConfig()) dims {mesh.mesh_dim_names} {tuple(mesh.shape)} "
+              f"built in {built:.4f} s, first placement + gather {first:.4f} s; a seven-dim mesh "
+              f"of size-1 dims built in {built7:.4f} s, first placement + gather {first7:.4f} s",
+              flush=True)
+        res = {"a": {"dims": list(mesh.mesh_dim_names), "build_s": built, "first_s": first,
+                     "build7_s": built7, "first7_s": first7}}
+        res.update(_mesh_llama(ctx, mesh))
+        res.update(_mesh_ulysses_moe(ctx, mesh))
+        ctx["mesh"] = res
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def _mesh_llama(ctx, mesh):
+    """mesh (b) and (c): llama_1b through the mesh against the unsharded port."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, shard_pytree
+    from ray_tpu_torch.train.step import (TrainState, default_optimizer, make_train_state_factory,
+                                          make_train_step)
+
+    # (b) loss and every gradient, sharded against unsharded, B2 S2048
+    cfg = tl.LlamaConfig.llama_1b(max_seq_len=2048, remat="save_attn")
+    L = cfg.num_layers
+    kernels_step = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    params = tl.llama_init(cfg, seed=0, device="cuda")
+    sharded = shard_pytree(params, tl.llama_logical_axes(cfg), mesh, DEFAULT_LLM_RULES)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2048))).cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+    names, leaves = grad_leaves(params)
+    _, sleaves = grad_leaves(sharded)
+
+    def grads(p, lv, **kw):
+        loss = tl.llama_loss(p, tokens, targets, cfg, **kw)
+        return loss, torch.autograd.grad(loss, lv)
+
+    _kernels.reset_counts()
+    loss_m, grads_m = grads(sharded, sleaves, mesh=mesh)
+    loss_m = loss_m.full_tensor().detach()
+    grads_m = [g.full_tensor() for g in grads_m]
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launch_counts)
+    require_no_plain(counts, "mesh (b)")
+    require(counts == kernels_step, f"mesh (b) sharded path launched {counts}, expected "
+            f"{kernels_step}")
+    loss_u, grads_u = grads(params, leaves)
+    rel_loss = abs(loss_m.item() - loss_u.item()) / abs(loss_u.item())
+    print(f"mesh (b) llama_1b, {L} layers, B2 S2048, save_attn: loss sharded "
+          f"{loss_m.item():.6f} unsharded {loss_u.item():.6f}, relative difference "
+          f"{rel_loss:.3e} (tol {MESH_LOSS_RTOL}); sharded launches {counts}", flush=True)
+    worst = compare_grads(torch, "mesh (b)", names, grads_m, grads_u)
+    require(rel_loss <= MESH_LOSS_RTOL, f"mesh (b) loss disagrees: {rel_loss}")
+    out = {"b": {"loss_sharded": loss_m.item(), "loss_unsharded": loss_u.item(),
+                 "rel_loss": rel_loss, "rel_grad": worst, "launches": counts}}
+    del params, sharded, leaves, sleaves, grads_m, grads_u
+    torch.cuda.empty_cache()
+
+    # (c) the sharded train step at B8 S2048, in turns with the unsharded step
+    # on the same tensors (at world size 1 a DTensor's local tensor is the
+    # whole parameter)
+    opt = default_optimizer(warmup_steps=10, total_steps=1000)
+    state = make_train_state_factory(cfg, opt, mesh=mesh)(seed=0)
+    local = lambda tree: {k: local(v) if isinstance(v, dict) else v.to_local()
+                          for k, v in tree.items()}
+    plain = TrainState(step=0, params=local(state.params),
+                       opt_state=dataclasses.replace(state.opt_state, mu=local(state.opt_state.mu),
+                                                     nu=local(state.opt_state.nu)))
+    steps = {"sharded": make_train_step(cfg, opt, mesh=mesh), "unsharded": make_train_step(cfg, opt)}
+    states = {"sharded": state, "unsharded": plain}
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2048))).cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+
+    def run(which):
+        torch.cuda.synchronize()
+        before = dict(_kernels.launch_counts)
+        t0 = time.perf_counter()
+        states[which], m = steps[which](states[which], tokens, targets)
+        loss = m["loss"].item()  # waits for the step
+        wall = time.perf_counter() - t0
+        # the other path's state shares these tensors: keep its counts along
+        states["unsharded" if which == "sharded" else "sharded"].opt_state.count = \
+            states[which].opt_state.count
+        launched = {n: c - before.get(n, 0) for n, c in _kernels.launch_counts.items()
+                    if c != before.get(n, 0)}
+        return {"loss": loss, "grad_norm": m["grad_norm"].item(), "ms": wall * 1e3,
+                "launches": launched}
+
+    for _ in range(3):
+        run("sharded")
+    run("unsharded")
+    _kernels.reset_counts()
+    timed = {"sharded": [], "unsharded": []}
+    for which in ("sharded", "unsharded", "unsharded", "sharded") * 2 + ("sharded",):
+        rec = run(which)
+        timed[which].append(rec)
+        print(f"mesh (c) {which} step: {rec['ms']:.3f} ms, "
+              f"loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} launches "
+              f"{dict(sorted(rec['launches'].items()))}", flush=True)
+        require(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+                f"mesh (c) {which}: non-finite metrics")
+        require(rec["launches"] == kernels_step, f"mesh (c) {which} step launched "
+                f"{rec['launches']}, expected {kernels_step} and no other kernel")
+    launches = {n: c for n, c in _kernels.launch_counts.items() if c}
+    require_no_plain(_kernels.launch_counts, "mesh (c)")
+    med = {w: statistics.median(r["ms"] for r in recs) for w, recs in timed.items()}
+    print(f"mesh (c) on {ctx['card']} ({ctx['smi']}): llama_1b, {L} layers, save_attn, B8 S2048, "
+          f"world size 1: sharded {med['sharded']:.3f} ms/step over {len(timed['sharded'])} "
+          f"steps, unsharded {med['unsharded']:.3f} ms/step over {len(timed['unsharded'])} "
+          f"steps, in turns; the train phase's unsharded step {ctx['train']['step_ms']:.3f} ms",
+          flush=True)
+    # what the gap is made of: one more step of each under torch.profiler
+    profiled = {w: _profiled_step(torch, lambda w=w: run(w)) for w in ("sharded", "unsharded")}
+    out["c"] = {"median_ms": med, "steps": timed, "profiled": profiled,
+                "train_phase_step_ms": ctx["train"]["step_ms"], "launches": launches}
+    ctx["mesh_launches"] = launches
+    del state, plain, states, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profiled_step(torch, step) -> dict:
+    """One train step under torch.profiler: its wall ms (the profiler's own
+    cost included), the device's busy ms (the sum of the device events'
+    times), device events run, and the five host ops of most self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rec = step()
+    events = prof.key_averages()
+    # the device's own events (kernels, copies, fills); a host op's device
+    # total would count its kernels a second time
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
+    res = {"wall_ms": rec["ms"], "device_busy_ms": sum(e.self_device_time_total
+                                                        for e in device) / 1e3,
+           "device_ops": sum(e.count for e in device),
+           "host_top": [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in top]}
+    print(f"mesh (c) profiled: wall {res['wall_ms']:.3f} ms, device busy "
+          f"{res['device_busy_ms']:.3f} ms over {res['device_ops']} device ops; host self time "
+          + ", ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in res["host_top"]), flush=True)
+    return res
+
+
+def _mesh_ulysses_moe(ctx, mesh):
+    """mesh (d) and (e)."""
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.ops.attention import attention, reference_attention
+    from ray_tpu_torch.parallel.expert import MoeConfig, moe_apply, moe_init, moe_logical_axes
+    from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, shard_pytree
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    # (d) Ulysses with the port's attention at llama_1b's heads, B8 S2048
+    (q, k, v), = _flash_case(torch, *TRAIN_ATTN, seed=90)
+    _kernels.reset_counts()
+    with torch.no_grad():
+        out = ulysses_attention_sharded(q, k, v, mesh, causal=True, axis_name="sp",
+                                        attn_fn=attention).full_tensor()
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launch_counts)
+    require_no_plain(counts, "mesh (d)")
+    require(counts == {"flash_fwd": 1}, f"mesh (d) launched {counts}, expected one flash_fwd")
+    ref = reference_attention(q, k, v, causal=True)
+    err = (out.float() - ref.float()).abs().max().item()
+    ratio = close_ratio(out, ref)
+    print(f"mesh (d) ulysses_attention_sharded {TRAIN_ATTN}, attn_fn attention: max_abs_err "
+          f"{err:.3e}, worst error / (atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} |plain|) = "
+          f"{ratio:.3f} (must be <= 1), launches {counts}", flush=True)
+    require(bool(torch.isfinite(out).all()) and ratio <= 1.0, f"mesh (d) disagrees: {ratio}")
+    out_d = {"max_abs_err": err, "ratio": ratio, "launches": counts}
+    del q, k, v, out, ref
+
+    # (e) MoE at llama_1b's widths: bf16 against fp32 on the bf16-rounded inputs
+    cfg = MoeConfig(num_experts=8, top_k=2)
+    params = moe_init(0, cfg, hidden=2048, ffn=8192, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(91)
+    x = torch.randn((8, 2048, 2048), generator=g, device="cuda").to(torch.bfloat16)
+    axes = moe_logical_axes()
+    results = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        p = shard_pytree({n: w.to(torch.float32 if n == "router" else dtype)
+                          for n, w in params.items()}, axes, mesh, DEFAULT_LLM_RULES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y, aux = moe_apply(p, x.to(dtype), cfg, mesh=mesh, rules=DEFAULT_LLM_RULES)
+            y = y.full_tensor().float()
+        torch.cuda.synchronize()
+        results[name] = (y, aux["moe_dropped_fraction"].full_tensor().item(),
+                         time.perf_counter() - t0)
+        del p
+    (yb, dropb, tb), (yf, dropf, tf) = results["bf16"], results["fp32"]
+    rel = ((yb - yf).abs().max() / yf.abs().max()).item()
+    hidden, ffn = params["w_gate"].shape[1:]
+    print(f"mesh (e) moe_apply hidden {hidden} ffn {ffn}, {cfg.num_experts} experts top-{cfg.top_k}, "
+          f"{x.shape[0] * x.shape[1]} tokens: bf16 against fp32 max|diff|/max|fp32| {rel:.3e} "
+          f"(tol {MOE_RTOL}); dropped fraction bf16 {dropb:.6f} fp32 {dropf:.6f}; "
+          f"{tb * 1e3:.1f} ms bf16, {tf * 1e3:.1f} ms fp32 (first calls)", flush=True)
+    require(bool(torch.isfinite(yb).all()) and rel <= MOE_RTOL, f"mesh (e) disagrees: {rel}")
+    require(dropb == dropf, f"mesh (e): the routing differs: dropped {dropb} against {dropf}")
+    del results, yb, yf, params, x
+    torch.cuda.empty_cache()
+    return {"d": out_d, "e": {"rel": rel, "dropped": dropb}}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -1101,6 +1373,8 @@ def main() -> int:
         entry = dict(ctx[key], launches=run.get(ctx[key]["name"], 0))
         if key in ("k1l", "k2", "k3"):  # the same kernels in the vit phase's 10 timed steps
             entry["launches_vit"] = ctx["vit_launches"].get(entry["name"], 0)
+            # and in the mesh phase's timed steps (sharded and unsharded in turns)
+            entry["launches_mesh"] = ctx["mesh_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -1109,7 +1383,7 @@ def main() -> int:
     record = {"card": ctx["card"], "smi": ctx["smi"], "build_s": ctx["build_s"],
               "peaks": ctx["peaks_key"], "kernels": kernels,
               "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
-              "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"]}
+              "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"], "mesh": ctx["mesh"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

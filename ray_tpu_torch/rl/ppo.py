@@ -4,7 +4,11 @@ ray_tpu/rl/ppo.py).
 The value function is a linear head on the SAME trunk (no second model);
 GAE runs as a reverse loop over token positions, each iteration on the whole
 batch at once; policy and value head update together, with one optimizer
-and two optimizer states. No mesh yet.
+and two optimizer states.
+
+Under a ``mesh`` the policy is a tree of DTensors, as in ``rl/grpo.py``; the
+value head stays plain tensors (the same on every rank), entering the
+DTensor graph replicated, so its gradient comes back whole.
 """
 
 from __future__ import annotations
@@ -13,11 +17,13 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.llama import LlamaConfig, llama_hidden, lm_head_weight, params_from_jax
-from ray_tpu_torch.rl.grpo import token_logprobs
-from ray_tpu_torch.train.step import AdamW, AdamWState, TrainState, _leaves
+from ray_tpu_torch.rl.grpo import shard_rows, token_logprobs
+from ray_tpu_torch.train.step import (AdamW, AdamWState, TrainState, _leaves, _replicated,
+                                      in_param_layout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +55,24 @@ def value_head_from_jax(value_head, device="cpu") -> Dict[str, torch.Tensor]:
     return params_from_jax(dict(value_head), device)
 
 
-def value_estimates(params, value_head, tokens, config: LlamaConfig) -> torch.Tensor:
+def _replicated_head(value_head, mesh):
+    """The plain value head as replicated DTensors under a mesh
+    (differentiable: the gradient comes back to the plain tensors whole)."""
+    if mesh is None:
+        return value_head
+    rep = [Replicate()] * mesh.ndim
+    return {k: DTensor.from_local(v, mesh, rep, run_check=False) for k, v in value_head.items()}
+
+
+def value_estimates(params, value_head, tokens, config: LlamaConfig, mesh=None) -> torch.Tensor:
     """Per-position value V(s_t) [B, T]: the linear head on the trunk's hidden
-    states."""
-    x = llama_hidden(params, tokens.long(), config)
-    return x.float() @ value_head["w"] + value_head["b"]
+    states (a plain tensor under a mesh too)."""
+    tokens = tokens.long()
+    if mesh is not None:
+        tokens, = shard_rows(mesh, tokens)
+    x = llama_hidden(params, tokens, config, mesh=mesh)
+    vh = _replicated_head(value_head, mesh)
+    return _replicated(x.float() @ vh["w"] + vh["b"])
 
 
 def gae_advantages(rewards, values, mask, gamma: float, lam: float
@@ -79,18 +98,22 @@ def gae_advantages(rewards, values, mask, gamma: float, lam: float
     return advantages, advantages + values * mask
 
 
-def ppo_loss(params, value_head, batch: Dict[str, Any], config: LlamaConfig, ppo: PPOConfig
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def ppo_loss(params, value_head, batch: Dict[str, Any], config: LlamaConfig, ppo: PPOConfig,
+             mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     tokens = batch["tokens"].long()     # [B, T]
     mask = batch["mask"]                # [B, T-1] action positions
     old_logp = batch["old_logprobs"]    # [B, T-1]
     advantages = batch["advantages"]    # [B, T-1]
     returns = batch["returns"]          # [B, T-1]
     old_values = batch["old_values"]    # [B, T-1]
+    if mesh is not None:
+        tokens, mask, old_logp, advantages, returns, old_values = shard_rows(
+            mesh, tokens, mask, old_logp, advantages, returns, old_values)
 
-    x = llama_hidden(params, tokens, config)
+    x = llama_hidden(params, tokens, config, mesh=mesh)
     logp, logits = token_logprobs(x, lm_head_weight(params, config), tokens)
-    values = x[:, :-1].float() @ value_head["w"] + value_head["b"]
+    vh = _replicated_head(value_head, mesh)
+    values = x[:, :-1].float() @ vh["w"] + vh["b"]
 
     denom = mask.sum().clamp(min=1.0)
     # normalized advantages (standard PPO practice)
@@ -115,7 +138,7 @@ def ppo_loss(params, value_head, batch: Dict[str, Any], config: LlamaConfig, ppo
     return loss, {"pg_loss": pg, "value_loss": v_loss, "entropy": entropy}
 
 
-def make_ppo_step(config: LlamaConfig, optimizer: AdamW, ppo: PPOConfig):
+def make_ppo_step(config: LlamaConfig, optimizer: AdamW, ppo: PPOConfig, mesh=None):
     """(state, value_head, vh_opt_state, batch) -> (state, value_head,
     vh_opt_state, metrics). Policy and value head take their gradients from
     one backward and their updates from the same optimizer, each with its own
@@ -126,13 +149,15 @@ def make_ppo_step(config: LlamaConfig, optimizer: AdamW, ppo: PPOConfig):
         for p in leaves + vleaves:
             p.requires_grad_(True)
         with torch.enable_grad():
-            loss, aux = ppo_loss(state.params, value_head, batch, config, ppo)
+            loss, aux = ppo_loss(state.params, value_head, batch, config, ppo, mesh=mesh)
             grads = list(torch.autograd.grad(loss, leaves + vleaves))
-        optimizer.update_(grads[:len(leaves)], state.opt_state, state.params)
+        optimizer.update_(in_param_layout(grads[:len(leaves)], leaves), state.opt_state,
+                          state.params)
         optimizer.update_(grads[len(leaves):], vh_opt, value_head)
         new_state = TrainState(step=state.step + 1, params=state.params,
                                opt_state=state.opt_state)
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        metrics = {"loss": _replicated(loss.detach()),
+                   **{k: _replicated(v.detach()) for k, v in aux.items()}}
         return new_state, value_head, vh_opt, metrics
 
     return step_fn

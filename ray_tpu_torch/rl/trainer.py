@@ -10,7 +10,12 @@ The engine serves the trainer's own parameter tensors, which the update
 writes in place: its loop thread only reads them while a ``generate`` is
 outstanding, and the update runs only once every ``generate`` of the
 rollout has returned. The frozen reference policy is a CLONE: an alias would
-move with the policy, and the KL would read 0 forever. No mesh yet.
+move with the policy, and the KL would read 0 forever.
+
+With a ``mesh`` the learner (logprobs and update) runs sharded: the policy
+and the reference policy are DTensors (``shard_train_state``), and after
+each update the engine serves the whole updated policy (``full_tensor``
+of each parameter); the rollouts stay unsharded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,11 +26,13 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+from ray_tpu_torch.models.llama import LlamaConfig, llama_init, llama_logical_axes
+from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, shard_pytree
 from ray_tpu_torch.rl.grpo import (GRPOConfig, compute_group_advantages, make_grpo_step,
                                    make_logprob_fn)
 from ray_tpu_torch.serve.llm import LLMEngine, _params_to
-from ray_tpu_torch.train.step import TrainState, default_optimizer
+from ray_tpu_torch.train.step import (TrainState, _replicated, default_optimizer,
+                                      shard_train_state)
 
 # A rollout request that has not returned after this long has failed: the
 # engine loop logs and survives a failing kernel, so without a limit the
@@ -37,6 +44,13 @@ def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
     return tree.detach().clone()
+
+
+def _whole(tree):
+    """The parameters as plain tensors: DTensors gathered, tensors as they are."""
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    return _replicated(tree.detach())
 
 
 class GRPOTrainer:
@@ -52,8 +66,10 @@ class GRPOTrainer:
         params=None,
         num_slots: int = 8,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.config = config
         self.grpo = grpo or GRPOConfig()
         self.reward_fn = reward_fn
@@ -65,8 +81,12 @@ class GRPOTrainer:
         self.state = TrainState(step=0, params=params, opt_state=optimizer.init(params))
         # frozen reference policy for the KL penalty
         self._ref_params = _clone(params)
-        self._logprob = make_logprob_fn(config)
-        self._step = make_grpo_step(config, optimizer, self.grpo)
+        if mesh is not None:
+            self.state = shard_train_state(self.state, mesh)
+            self._ref_params = shard_pytree(self._ref_params, llama_logical_axes(config), mesh,
+                                            DEFAULT_LLM_RULES)
+        self._logprob = make_logprob_fn(config, mesh=mesh)
+        self._step = make_grpo_step(config, optimizer, self.grpo, mesh=mesh)
         self.engine = LLMEngine(
             config, params=params, device=self.device, num_slots=num_slots,
             temperature=self.grpo.temperature,
@@ -125,8 +145,9 @@ class GRPOTrainer:
         for _ in range(self.grpo.epochs_per_batch):
             self.state, metrics = self._step(self.state, batch)
         # the engine serves the UPDATED policy for the next rollouts (the
-        # same tensors, updated in place)
-        self.engine.params = self.state.params
+        # same tensors, updated in place; under a mesh, the gathered policy)
+        self.engine.params = (self.state.params if self.mesh is None
+                              else _whole(self.state.params))
         out = {k: float(v) for k, v in metrics.items()}
         out["reward_mean"] = float(rewards.mean())
         out["reward_std"] = float(rewards.std())

@@ -27,7 +27,15 @@ Both:
 The gradient norm is summed in fp32 (optax sums in the gradients' dtype; the
 two agree in fp32). The metrics are ``loss``, ``grad_norm`` (of the
 unclipped gradients) and ``step``. Parameters and moments are updated in
-place, the counterpart of the JAX step's ``donate=True``. No mesh yet.
+place, the counterpart of the JAX step's ``donate=True``.
+
+Under a ``mesh`` the parameters and both moments are DTensors laid out by
+``state_logical_axes`` (the moments take their parameter's axes), and each
+gradient is redistributed to its parameter's placements before the update:
+autograd hands it back in whatever layout its last op left (a parameter
+placed (Shard on fsdp, Shard on tp) can come back (Partial, Replicate)).
+The clip's norm is that of the whole gradients, DTensor reductions summing
+across the shards. The metrics are plain tensors.
 """
 
 from __future__ import annotations
@@ -38,9 +46,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.models.llama import (LlamaConfig, cross_entropy_loss, llama_forward,
-                                        llama_init, llama_loss, params_from_jax)
+                                        llama_init, llama_logical_axes, llama_loss,
+                                        params_from_jax)
+from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, ShardingRules, shard_constraint,
+                                             shard_pytree, sharding_pytree)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -162,40 +174,92 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1, b1: float = 0
                  warmup_steps=warmup_steps, total_steps=total_steps)
 
 
-def make_train_state_factory(config: LlamaConfig, optimizer: AdamW) -> Callable[..., TrainState]:
+def state_logical_axes(config: LlamaConfig) -> TrainState:
+    """Logical axes for the whole TrainState: the optimizer moments mirror
+    the param axes; the step and the update count carry none."""
+    axes = llama_logical_axes(config)
+    return TrainState(step=None, params=axes, opt_state=AdamWState(count=None, mu=axes, nu=axes))
+
+
+def _state_shardings(axes_tree, mesh, rules: ShardingRules):
+    """The placements of every tensor of a TrainState's axes tree."""
+    return sharding_pytree(axes_tree, mesh, rules)
+
+
+def shard_train_state(state: TrainState, mesh, rules: ShardingRules = DEFAULT_LLM_RULES
+                      ) -> TrainState:
+    """Place a TrainState (from ``make_train_state_factory`` without a mesh
+    or ``train_state_from_jax``; the same values on every rank) on ``mesh``:
+    parameters and moments become DTensors laid out by
+    ``state_logical_axes``, each rank keeping its shard."""
+    config = LlamaConfig(tie_embeddings="lm_head" not in state.params)
+    return shard_pytree(state, state_logical_axes(config), mesh, rules)
+
+
+def _replicated(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def in_param_layout(grads, leaves):
+    """Each gradient in its parameter's placements (a no-op off a mesh):
+    autograd hands a DTensor gradient back in whatever layout its last op
+    left, and the in-place update needs the parameter's own."""
+    return [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+            for g, p in zip(grads, leaves)]
+
+
+def make_train_state_factory(config: LlamaConfig, optimizer: AdamW, mesh=None,
+                             rules: ShardingRules = DEFAULT_LLM_RULES) -> Callable[..., TrainState]:
     """Returns init(seed=0, device=None) -> TrainState (on the card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``; under a mesh, on the mesh's device type, placed by
+    ``shard_train_state``: the same values as the unsharded init from the
+    same seed)."""
 
     def init(seed: int = 0, device=None) -> TrainState:
+        if mesh is not None and device is None:
+            device = mesh.device_type
         params = llama_init(config, seed=seed, device=device)
-        return TrainState(step=0, params=params, opt_state=optimizer.init(params))
+        state = TrainState(step=0, params=params, opt_state=optimizer.init(params))
+        return state if mesh is None else shard_train_state(state, mesh, rules)
 
     return init
 
 
-def make_train_step(config: LlamaConfig, optimizer: AdamW):
-    """(state, tokens, targets) -> (state, metrics). tokens/targets: [B, S].
-    The returned state holds the same tensors, updated in place."""
+def make_train_step(config: LlamaConfig, optimizer: AdamW, mesh=None,
+                    rules: ShardingRules = DEFAULT_LLM_RULES):
+    """(state, tokens, targets) -> (state, metrics). tokens/targets: [B, S]
+    (under a mesh: DTensors, or the same global values on every rank). The
+    returned state holds the same tensors, updated in place."""
 
     def step_fn(state: TrainState, tokens, targets) -> Tuple[TrainState, Dict[str, Any]]:
         leaves = _leaves(state.params)
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
-            loss = llama_loss(state.params, tokens.long(), targets.long(), config)
+            loss = llama_loss(state.params, tokens.long(), targets.long(), config, mesh=mesh,
+                              rules=rules)
             grads = list(torch.autograd.grad(loss, leaves))
-        gnorm = optimizer.update_(grads, state.opt_state, state.params)
+        gnorm = optimizer.update_(in_param_layout(grads, leaves), state.opt_state, state.params)
         new_state = TrainState(step=state.step + 1, params=state.params,
                                opt_state=state.opt_state)
-        return new_state, {"loss": loss.detach(), "grad_norm": gnorm, "step": new_state.step}
+        return new_state, {"loss": _replicated(loss.detach()), "grad_norm": _replicated(gnorm),
+                           "step": new_state.step}
 
     return step_fn
 
 
-def make_eval_step(config: LlamaConfig):
+def make_eval_step(config: LlamaConfig, mesh=None, rules: ShardingRules = DEFAULT_LLM_RULES):
+    """(params, tokens, targets) -> the mean CE loss (a plain scalar)."""
+
     @torch.no_grad()
     def eval_fn(params, tokens, targets):
-        return cross_entropy_loss(llama_forward(params, tokens.long(), config), targets)
+        logits = llama_forward(params, tokens.long(), config, mesh=mesh, rules=rules)
+        targets = targets.long()
+        if mesh is not None:
+            # the gold-logit gather takes each rank's whole vocabulary rows
+            logits = shard_constraint(logits, mesh, rules, ("batch", "seq", None))
+            targets = shard_constraint(targets, mesh, rules, ("batch", "seq"))
+        return _replicated(cross_entropy_loss(logits, targets))
 
     return eval_fn
 

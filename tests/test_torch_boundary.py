@@ -37,6 +37,7 @@ def test_the_port_has_files_to_check():
     assert "chip_smoke.py" in names
     assert "ray_tpu_torch/serve/llm.py" in names and "ray_tpu_torch/_kernels.py" in names
     assert "ray_tpu_torch/models/vit.py" in names
+    assert "ray_tpu_torch/parallel/mesh.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

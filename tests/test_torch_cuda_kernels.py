@@ -613,3 +613,112 @@ def test_grpo_train_step_on_tiny_on_the_card(dev):
         trainer.stop()
     counts = _delta(before)
     assert set(counts) == set(PLAINS), counts
+
+
+# --------------------------------------------------------------------------- #
+# The mesh (ray_tpu_torch.parallel) at world size 1 on NCCL
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def mesh1():
+    """make_mesh(MeshConfig()) on a process group of world size 1 (NCCL),
+    torn down after the module's mesh tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: NCCL and the CUDA kernels")
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh(MeshConfig())
+    finally:
+        dist.destroy_process_group()
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _mesh_config(which):
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    if which == "tiny":  # head dim 32: the plain attention, with autograd through it
+        return _tiny(torch.bfloat16, remat=None)
+    # llama_1b's attention (16 q heads over 4 kv heads of 128) in 2 narrow layers
+    return LlamaConfig(vocab_size=1024, hidden_size=2048, intermediate_size=1024, num_layers=2,
+                       num_heads=16, num_kv_heads=4, max_seq_len=512, dtype=torch.bfloat16,
+                       remat="save_attn")
+
+
+@pytest.mark.parametrize("which", ["tiny", "llama_1b_heads"])
+def test_sharded_train_step_on_the_card_matches_unsharded(mesh1, which):
+    """Under the world-size-1 mesh: the loss and every gradient of
+    llama_loss(..., mesh=mesh) against the unsharded port's, within
+    MODEL_RTOL of the largest element; then one train step of each from the
+    same seed, loss and grad_norm within 1e-3. The sharded step launches
+    what the unsharded one does: tiny's head dim 32 the plain attention,
+    llama_1b's heads K1', K2 and K3 once a layer."""
+    import numpy as np
+
+    from ray_tpu_torch.models.llama import llama_init, llama_logical_axes, llama_loss
+    from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, shard_pytree
+    from ray_tpu_torch.train.step import (_leaves, default_optimizer, make_train_state_factory,
+                                          make_train_step)
+
+    cfg = _mesh_config(which)
+    L = cfg.num_layers
+    want = ({"attention_plain": L} if which == "tiny" else
+            {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 256)))
+    tokens = tokens.cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+    params = llama_init(cfg, 3, "cuda")
+    sharded = shard_pytree(params, llama_logical_axes(cfg), mesh1, DEFAULT_LLM_RULES)
+    results = {}
+    for name, p, kw in (("unsharded", params, {}), ("sharded", sharded, {"mesh": mesh1})):
+        leaves = _leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = _counts()
+        loss = llama_loss(p, tokens, targets, cfg, **kw)
+        grads = torch.autograd.grad(loss, leaves)
+        assert _delta(before) == want
+        results[name] = (_whole(loss), [_whole(g) for g in grads])
+    (l0, g0), (l1, g1) = results["unsharded"], results["sharded"]
+    assert abs(l1.item() - l0.item()) <= 1e-3 * abs(l0.item())
+    for a, b in zip(g1, g0):
+        assert torch.isfinite(a).all() and _rel(a, b) <= MODEL_RTOL
+
+    opt = default_optimizer(lr=1e-2, warmup_steps=1, total_steps=50)
+    metrics = {}
+    for name, mesh in (("unsharded", None), ("sharded", mesh1)):
+        state = make_train_state_factory(cfg, opt, mesh=mesh)(seed=3, device="cuda")
+        before = _counts()
+        _, metrics[name] = make_train_step(cfg, opt, mesh=mesh)(state, tokens, targets)
+        assert _delta(before) == want
+    m0, m1 = metrics["unsharded"], metrics["sharded"]
+    for k in ("loss", "grad_norm"):
+        assert abs(m1[k].item() - m0[k].item()) <= 1e-3 * abs(m0[k].item()), k
+
+
+def test_sharded_eval_step_launches_the_forward_kernel(mesh1):
+    """make_eval_step(mesh=mesh) at llama_1b's heads: one flash_fwd a layer
+    (no gradient), and the unsharded eval's loss within 1e-3."""
+    import numpy as np
+
+    from ray_tpu_torch.models.llama import llama_init, llama_logical_axes
+    from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, shard_pytree
+    from ray_tpu_torch.train.step import make_eval_step
+
+    cfg = _mesh_config("llama_1b_heads")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 256)))
+    tokens = tokens.cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+    params = llama_init(cfg, 4, "cuda")
+    want = make_eval_step(cfg)(params, tokens, targets)
+    sharded = shard_pytree(params, llama_logical_axes(cfg), mesh1, DEFAULT_LLM_RULES)
+    before = _counts()
+    got = make_eval_step(cfg, mesh=mesh1)(sharded, tokens, targets)
+    assert _delta(before) == {"flash_fwd": cfg.num_layers}
+    assert abs(got.item() - want.item()) <= 1e-3 * abs(want.item())
