@@ -55,6 +55,22 @@ Phases, all of them on every run, in this order:
            plain attention; (e) moe_apply at llama_1b's widths (hidden 2048,
            ffn 8192, 8 experts, top-2, 16384 tokens) in bf16 against the
            same call in fp32 on the bf16-rounded inputs.
+  runtime  the port's in-process runtime (ray_tpu_torch.init) with its GPU
+           resource: (a) one GPU in cluster_resources and the accelerator
+           ids; (b) a bf16 CUDA tensor through put/get and a num_gpus=1
+           task argument, the same tensor (data_ptr); two num_gpus=1 tasks
+           one after the other (start and end stamps); an actor with
+           num_gpus=1 keeping a CUDA tensor across calls; (c) the train
+           phase's llama_1b step (B8 S2048, save_attn, seed 0) inside
+           GpuTrainer (one worker, use_gpu), 3 warm-up + 5 timed steps with
+           train.report after each, in turns with the same loop run directly
+           (direct, trainer, trainer, direct): losses within 1e-6 and
+           whether bit-equal, ms a step both ways, exact launches read in
+           this thread; (d) restart from checkpoint: llama_1b's width at 2
+           layers, B2 S512, FailureConfig(max_failures=1), the TrainState
+           torch.saved after step 2, a failure before step 3, the second
+           attempt resuming from it; losses against an uninterrupted run's,
+           the checkpoint's bytes and its save and load seconds.
 
 Every launch check also requires attention_plain == paged_attention_plain
 == 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version,
@@ -65,8 +81,9 @@ last line is {"ok": true, "device": {...}} only when every phase passed. Any
 failure exits non-zero and prints no result. Each kernel's launches come
 from the phase whose path runs it (serve: flash_fwd, paged_attention; train:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv; the latter three also carry
-launches_vit, from the vit phase's timed steps). A copy of the results goes to
-build/chip_smoke.json.
+launches_vit, launches_mesh and launches_runtime, from the vit and mesh
+phases' timed steps and the runtime phase's first GpuTrainer run). A copy
+of the results goes to build/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -81,7 +98,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
-PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh")
+PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh", "runtime")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -1335,6 +1352,305 @@ def _mesh_ulysses_moe(ctx, mesh):
     return {"d": out_d, "e": {"rel": rel, "dropped": dropb}}
 
 
+# The runtime phase's llama_1b loop: the train phase's configuration
+# (ray_tpu_torch.bench.train_bench's), 3 warm-up then 5 timed steps.
+RUNTIME_WARMUP, RUNTIME_STEPS = 3, 5
+# Trainer against direct losses (c), and resumed against uninterrupted (d):
+# the same kernels on the same tensors from the same seed, so only a change
+# of arithmetic could move them; bf16 rounding of one element moves a mean
+# over 16384 or 1024 tokens by far more than this.
+RUNTIME_LOSS_RTOL = 1e-6
+# (d): llama_1b's width and heads at 2 layers, B2 S512; the TrainState saved
+# after step 2, a failure before step 3 of the first attempt, steps 3..5 from
+# the checkpoint.
+RESTART_LAYERS, RESTART_SAVE_AT, RESTART_STEPS = 2, 2, 6
+
+
+def _runtime_llama_loop(report):
+    """llama_1b, save_attn, B8 S2048 from seed 0 (train_bench's data and
+    optimizer): RUNTIME_WARMUP + RUNTIME_STEPS steps, ``report(metrics)``
+    after each with the step's ms (step and loss read), a host clock stamp
+    and the kernels it launched."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train.step import (default_optimizer, make_train_state_factory,
+                                          make_train_step)
+
+    cfg = LlamaConfig.llama_1b(max_seq_len=2048, remat="save_attn", attention_impl="flash")
+    opt = default_optimizer(warmup_steps=10, total_steps=1000)
+    state = make_train_state_factory(cfg, opt)(seed=0, device="cuda")
+    step = make_train_step(cfg, opt)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2048))).cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+    torch.cuda.synchronize()
+    for i in range(RUNTIME_WARMUP + RUNTIME_STEPS):
+        before = dict(_kernels.launch_counts)
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens, targets)
+        loss = metrics["loss"].item()  # waits for the step
+        ms = (time.perf_counter() - t0) * 1e3
+        report({"step": i, "loss": loss, "ms": ms, "t": time.perf_counter(),
+                "launches": {n: c - before.get(n, 0) for n, c in _kernels.launch_counts.items()
+                             if c != before.get(n, 0)}})
+
+
+def _runtime_restart_loop(crash: bool):
+    """(d)'s train function: llama_1b's width at RESTART_LAYERS layers, B2
+    S512. After step RESTART_SAVE_AT it torch.saves its TrainState and reports
+    it as a checkpoint; with ``crash`` the first attempt raises before the
+    next step; an attempt that finds a checkpoint resumes from it."""
+    def train_fn(config):
+        import dataclasses
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.models.llama import LlamaConfig
+        from ray_tpu_torch.train.step import (default_optimizer, make_train_state_factory,
+                                              make_train_step)
+
+        cfg = dataclasses.replace(LlamaConfig.llama_1b(max_seq_len=512, remat="save_attn",
+                                                       attention_impl="flash"),
+                                  num_layers=RESTART_LAYERS)
+        opt = default_optimizer(warmup_steps=10, total_steps=1000)
+        step = make_train_step(cfg, opt)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).cuda()
+        targets = torch.roll(tokens, -1, dims=1)
+        ckpt = train.get_checkpoint()
+        load_s = None
+        if ckpt is None:
+            state = make_train_state_factory(cfg, opt)(seed=0, device="cuda")
+        else:
+            t0 = time.perf_counter()
+            state = torch.load(os.path.join(ckpt.path, "state.pt"), weights_only=False)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        for i in range(state.step, RESTART_STEPS):
+            if crash and ckpt is None and i == RESTART_SAVE_AT + 1:
+                raise RuntimeError(f"simulated failure before step {i}")
+            state, metrics = step(state, tokens, targets)
+            rec = {"step": i, "loss": metrics["loss"].item(), "load_s": load_s}
+            if i != RESTART_SAVE_AT:
+                train.report(rec)
+                continue
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "state.pt")
+                t0 = time.perf_counter()
+                torch.save(state, path)
+                rec.update(save_s=time.perf_counter() - t0, bytes=os.path.getsize(path))
+                train.report(rec, checkpoint=train.Checkpoint.from_directory(d))
+    return train_fn
+
+
+def phase_runtime(ctx):
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    torch.cuda.empty_cache()
+    if rt.is_initialized():
+        rt.shutdown()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    rt.init(num_cpus=8)
+    try:
+        # (a) the GPU resource
+        res = rt.cluster_resources()
+        ids = rt.get_runtime_context().get_accelerator_ids()
+        print(f"runtime (a): cluster_resources GPU {res.get('GPU')}, CPU {res.get('CPU')}; "
+              f"accelerator ids {ids}", flush=True)
+        require(res.get("GPU") == 1 and ids == {"GPU": ["0"]},
+                f"runtime (a): expected one GPU, got {res.get('GPU')} and {ids}")
+        out = {"a": {"GPU": res["GPU"], "accelerator_ids": ids}}
+        out["b"] = _runtime_objects(rt, torch)
+        out["c"] = _runtime_trainer(ctx, rt, torch, tmp)
+        out["d"] = _runtime_restart(rt, tmp)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(not os.path.exists(tmp), f"runtime: {tmp} was not removed")
+    ctx["runtime"] = out
+    torch.cuda.empty_cache()
+
+
+def _runtime_objects(rt, torch):
+    """runtime (b): CUDA tensors through put/get, task arguments and an
+    actor, zero-copy; two num_gpus=1 tasks one after the other."""
+    x = torch.randn((4096, 4096), device="cuda").to(torch.bfloat16)
+    got = rt.get(rt.put(x))
+    require(got is x and got.data_ptr() == x.data_ptr(), "runtime (b): put/get copied the tensor")
+
+    @rt.remote(num_gpus=1)
+    def where(t):
+        return t.data_ptr(), str(t.device), t.dtype
+
+    ptr, dev, dtype = rt.get(where.remote(x))
+    ptr_ref = rt.get(where.remote(rt.put(x)))[0]
+    require(ptr == ptr_ref == x.data_ptr() and dev == "cuda:0" and dtype == torch.bfloat16,
+            f"runtime (b): the task saw {ptr:#x} {dev} {dtype}, put {x.data_ptr():#x}")
+
+    @rt.remote(num_gpus=1)
+    def busy(t):
+        start = time.perf_counter()
+        for _ in range(50):
+            y = t @ t
+        value = y.float().abs().mean().item()  # waits for the products
+        return start, time.perf_counter(), value
+
+    t0 = time.perf_counter()
+    stamps = sorted(r[:2] for r in rt.get([busy.remote(x), busy.remote(x)]))
+    rel = [(round((a - t0) * 1e3, 3), round((b - t0) * 1e3, 3)) for a, b in stamps]
+    print(f"runtime (b): two num_gpus=1 tasks, (start, end) ms after submission: {rel}",
+          flush=True)
+    require(stamps[0][1] <= stamps[1][0], f"runtime (b): num_gpus=1 tasks overlapped: {rel}")
+
+    class Holder:
+        def __init__(self):
+            self.t = torch.zeros((1024, 1024), device="cuda", dtype=torch.bfloat16)
+
+        def bump(self):
+            self.t.add_(1)
+            return self.t.data_ptr(), str(self.t.device), self.t[0, 0].item()
+
+    h = rt.remote(Holder).options(num_gpus=1).remote()
+    calls = [rt.get(h.bump.remote()) for _ in range(3)]
+    held = rt.available_resources().get("GPU", 0)
+    rt.kill(h)
+    deadline = time.monotonic() + 10
+    while rt.available_resources().get("GPU", 0) < 1 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    print(f"runtime (b): actor with num_gpus=1, 3 calls (data_ptr, device, value): {calls}; "
+          f"GPU available while it lived {held}, after kill "
+          f"{rt.available_resources().get('GPU', 0)}", flush=True)
+    require(len({c[0] for c in calls}) == 1 and [c[2] for c in calls] == [1.0, 2.0, 3.0]
+            and calls[0][1] == "cuda:0", f"runtime (b): the actor's tensor moved: {calls}")
+    require(held == 0 and rt.available_resources().get("GPU") == 1,
+            "runtime (b): the actor's GPU was not held or not released")
+    return {"task_stamps_ms": rel, "actor_calls": [list(c) for c in calls]}
+
+
+def _runtime_trainer(ctx, rt, torch, tmp):
+    """runtime (c): the llama_1b loop inside GpuTrainer (one worker,
+    use_gpu) and directly in this thread, in turns: direct, trainer,
+    trainer, direct."""
+    import gc
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.train import GpuTrainer, RunConfig, ScalingConfig
+
+    L = _llama_1b().num_layers
+    want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    n = RUNTIME_WARMUP + RUNTIME_STEPS
+
+    def direct():
+        history = []
+        _runtime_llama_loop(history.append)
+        return history
+
+    def trainer(i):
+        def train_fn(config):
+            from ray_tpu_torch import train
+
+            _runtime_llama_loop(train.report)
+
+        r = GpuTrainer(train_fn, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                       run_config=RunConfig(name=f"llama_1b_{i}", storage_path=tmp)).fit()
+        require(r.error is None, f"runtime (c): the trainer failed: {r.error!r}")
+        return r.metrics_history
+
+    runs = []
+    for i, which in enumerate(("direct", "trainer", "trainer", "direct")):
+        gc.collect()  # the last run's state must be gone before the next allocates its own
+        torch.cuda.empty_cache()
+        _kernels.reset_counts()
+        history = direct() if which == "direct" else trainer(i)
+        counts = dict(_kernels.launch_counts)
+        require(len(history) == n, f"runtime (c) {which}: {len(history)} reports, expected {n}")
+        for rec in history:
+            require(math.isfinite(rec["loss"]), f"runtime (c) {which}: non-finite loss {rec}")
+            require(rec["launches"] == want, f"runtime (c) {which} step {rec['step']} launched "
+                    f"{rec['launches']}, expected {want} and no other kernel")
+        # the counts read here include every launch made on the trainer's thread
+        require(counts == {k: v * n for k, v in want.items()},
+                f"runtime (c) {which}: this thread read {counts}, expected {n} x {want}")
+        require_no_plain(counts, f"runtime (c) {which}")
+        timed = history[RUNTIME_WARMUP:]
+        period = [(b["t"] - a["t"]) * 1e3 for a, b in zip(history[RUNTIME_WARMUP - 1:], timed)]
+        runs.append({"which": which, "losses": [r["loss"] for r in history],
+                     "ms": [r["ms"] for r in timed], "period_ms": period,
+                     "median_ms": statistics.median(r["ms"] for r in timed),
+                     "median_period_ms": statistics.median(period), "launches": counts})
+        if which == "trainer":
+            print(f"runtime (c) GpuTrainer metrics_history: "
+                  f"{[{k: r[k] for k in ('step', 'loss', 'ms')} for r in history]}", flush=True)
+        print(f"runtime (c) {which}: median {runs[-1]['median_ms']:.3f} ms a step "
+              f"(step and loss read), median {runs[-1]['median_period_ms']:.3f} ms from one "
+              f"step's report to the next; launches {counts}", flush=True)
+    ref = runs[0]["losses"]
+    worst = max(abs(a - b) / abs(b) for r in runs[1:] for a, b in zip(r["losses"], ref))
+    bit_equal = all(r["losses"] == ref for r in runs)
+    med = {w: statistics.median(x for r in runs if r["which"] == w for x in r["period_ms"])
+           for w in ("direct", "trainer")}
+    step_med = {w: statistics.median(x for r in runs if r["which"] == w for x in r["ms"])
+                for w in ("direct", "trainer")}
+    print(f"runtime (c) on {ctx['card']} ({ctx['smi']}): llama_1b, {L} layers, save_attn, B8 "
+          f"S2048, {RUNTIME_WARMUP} + {RUNTIME_STEPS} steps a run, in turns direct, trainer, "
+          f"trainer, direct: losses bit-equal {bit_equal}, max relative difference {worst:.3e} "
+          f"(tol {RUNTIME_LOSS_RTOL}); median ms a step (step and loss read) direct "
+          f"{step_med['direct']:.3f}, trainer {step_med['trainer']:.3f}; report to report "
+          f"direct {med['direct']:.3f}, trainer {med['trainer']:.3f} (the runtime's thread, "
+          f"session and lockstep report: {med['trainer'] - med['direct']:.3f} ms a step)",
+          flush=True)
+    require(worst <= RUNTIME_LOSS_RTOL, f"runtime (c): trainer losses differ by {worst}")
+    ctx["runtime_launches"] = runs[1]["launches"]
+    return {"runs": runs, "bit_equal": bit_equal, "max_rel_loss": worst,
+            "median_period_ms": med, "median_step_ms": step_med}
+
+
+def _runtime_restart(rt, tmp):
+    """runtime (d): FailureConfig(max_failures=1) restarts from the
+    torch.saved TrainState; the losses match an uninterrupted run's."""
+    from ray_tpu_torch.train import FailureConfig, GpuTrainer, RunConfig, ScalingConfig
+
+    results = {}
+    for name, crash in (("uninterrupted", False), ("restarted", True)):
+        t0 = time.perf_counter()
+        r = GpuTrainer(_runtime_restart_loop(crash),
+                       scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                       run_config=RunConfig(name=f"restart_{name}", storage_path=tmp,
+                                            failure_config=FailureConfig(max_failures=1))).fit()
+        require(r.error is None, f"runtime (d) {name}: {r.error!r}")
+        results[name] = (r.metrics_history, time.perf_counter() - t0)
+    whole, restarted = results["uninterrupted"][0], results["restarted"][0]
+    require([m["step"] for m in restarted] == list(range(RESTART_STEPS)),
+            f"runtime (d): the restarted run reported steps {[m['step'] for m in restarted]}")
+    tail = slice(RESTART_SAVE_AT + 1, RESTART_STEPS)
+    a, b = [m["loss"] for m in restarted[tail]], [m["loss"] for m in whole[tail]]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    saved = restarted[RESTART_SAVE_AT]
+    load_s = restarted[RESTART_SAVE_AT + 1]["load_s"]
+    print(f"runtime (d): llama_1b width, {RESTART_LAYERS} layers, B2 S512; checkpoint after step "
+          f"{RESTART_SAVE_AT}: {saved['bytes']} bytes, torch.save {saved['save_s']:.3f} s, "
+          f"torch.load {load_s:.3f} s; losses from step {RESTART_SAVE_AT + 1} restarted {a}, "
+          f"uninterrupted {b}: bit-equal {a == b}, max relative difference {worst:.3e} (tol "
+          f"{RUNTIME_LOSS_RTOL}); fits {results['uninterrupted'][1]:.3f} s and "
+          f"{results['restarted'][1]:.3f} s", flush=True)
+    require(load_s is not None, "runtime (d): the second attempt did not load the checkpoint")
+    require(worst <= RUNTIME_LOSS_RTOL, f"runtime (d): resumed losses differ by {worst}")
+    return {"losses_restarted": a, "losses_uninterrupted": b, "bit_equal": a == b,
+            "max_rel_loss": worst, "bytes": saved["bytes"], "save_s": saved["save_s"],
+            "load_s": load_s}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -1375,6 +1691,8 @@ def main() -> int:
             entry["launches_vit"] = ctx["vit_launches"].get(entry["name"], 0)
             # and in the mesh phase's timed steps (sharded and unsharded in turns)
             entry["launches_mesh"] = ctx["mesh_launches"].get(entry["name"], 0)
+            # and in the runtime phase's first GpuTrainer run (8 llama_1b steps)
+            entry["launches_runtime"] = ctx["runtime_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -1383,7 +1701,8 @@ def main() -> int:
     record = {"card": ctx["card"], "smi": ctx["smi"], "build_s": ctx["build_s"],
               "peaks": ctx["peaks_key"], "kernels": kernels,
               "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
-              "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"], "mesh": ctx["mesh"]}
+              "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"], "mesh": ctx["mesh"],
+              "runtime": ctx["runtime"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

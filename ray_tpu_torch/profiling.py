@@ -1,0 +1,97 @@
+"""User profile events: spans that land on the cluster timeline.
+
+Reference capability: src/ray/core_worker/profile_event.{h,cc} +
+python/ray/_private/profiling.py:20-40 — `with ray.profiling.profile("x"):`
+inside a task records a span shipped to the observability backend and
+rendered by `ray timeline`. Here (own copy of ray_tpu.profiling): spans
+buffer in the process and, in the in-process runtime, flush into a local
+span log when the task finishes (read back with ``local_spans()``); the JAX
+package's cluster path ships them to the node agent and its timeline.
+
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote
+    def step():
+        with ray_tpu_torch.profile("load"):
+            ...
+        with ray_tpu_torch.profile("compute", extra={"batch": 8}):
+            ...
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
+
+# process-wide buffer: async actor methods record on the event-loop thread
+# while the flush runs on an executor thread, so the buffer must NOT be
+# thread-local. Bounded: an unflushed producer (local runtime, long-lived
+# profiling loop) can't grow memory without limit.
+_MAX_PENDING = 20000
+_spans: List[Dict[str, Any]] = []
+_lock = threading.Lock()
+# local-runtime sink (no agent to ship to): bounded in-process span log
+_local_runtime_spans: List[Dict[str, Any]] = []
+
+
+@contextmanager
+def profile(name: str, extra: Optional[Dict[str, Any]] = None):
+    """Record a named span for the cluster timeline."""
+    start = time.time()
+    try:
+        yield
+    finally:
+        end = time.time()
+        span: Dict[str, Any] = {"name": str(name), "start": start, "end": end}
+        if extra:
+            span["extra"] = {str(k): v for k, v in extra.items()}
+        try:
+            from ray_tpu_torch.core.worker import global_worker
+
+            w = global_worker()
+            task_id = getattr(w, "current_task_id", None)
+            if task_id is not None:
+                span["task_id"] = task_id.hex() if hasattr(task_id, "hex") \
+                    else str(task_id)
+        except Exception:  # noqa: BLE001 - outside a runtime
+            pass
+        with _lock:
+            _spans.append(span)
+            del _spans[:-_MAX_PENDING]
+
+
+def record_external_span(name: str, start: float, end: float,
+                         extra: Optional[Dict[str, Any]] = None) -> None:
+    """Record an already-timed span (the tracing bridge: util/tracing.py
+    spans ride the same flush path to the agent/timeline)."""
+    span: Dict[str, Any] = {"name": str(name), "start": start, "end": end}
+    if extra:
+        span["extra"] = {str(k): v for k, v in extra.items()}
+    with _lock:
+        _spans.append(span)
+        del _spans[:-_MAX_PENDING]
+
+
+def drain() -> List[Dict[str, Any]]:
+    """Take (and clear) every recorded span (worker/local flush paths)."""
+    global _spans
+    with _lock:
+        out, _spans = _spans, []
+    return out
+
+
+def flush_local() -> None:
+    """Local-runtime sink: move pending spans into the in-process log
+    (read back with local_spans(); there is no agent to ship to)."""
+    spans = drain()
+    if spans:
+        with _lock:
+            _local_runtime_spans.extend(spans)
+            del _local_runtime_spans[:-_MAX_PENDING]
+
+
+def local_spans() -> List[Dict[str, Any]]:
+    with _lock:
+        return list(_local_runtime_spans)

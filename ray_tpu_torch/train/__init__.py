@@ -1,7 +1,13 @@
+from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
+from ray_tpu_torch.train.session import (Checkpoint, get_checkpoint, get_context, report,
+                                         world_rank, world_size)
 from ray_tpu_torch.train.step import (AdamW, AdamWConstant, AdamWState, TrainState, adamw,
                                       default_optimizer, make_eval_step, make_train_state_factory,
                                       make_train_step, train_state_from_jax)
+from ray_tpu_torch.train.trainer import GpuTrainer, Result
 
-__all__ = ["AdamW", "AdamWConstant", "AdamWState", "TrainState", "adamw", "default_optimizer",
-           "make_eval_step", "make_train_state_factory", "make_train_step",
-           "train_state_from_jax"]
+__all__ = ["AdamW", "AdamWConstant", "AdamWState", "Checkpoint", "CheckpointConfig",
+           "FailureConfig", "GpuTrainer", "Result", "RunConfig", "ScalingConfig", "TrainState",
+           "adamw", "default_optimizer", "get_checkpoint", "get_context", "make_eval_step",
+           "make_train_state_factory", "make_train_step", "report", "train_state_from_jax",
+           "world_rank", "world_size"]

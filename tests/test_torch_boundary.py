@@ -38,6 +38,8 @@ def test_the_port_has_files_to_check():
     assert "ray_tpu_torch/serve/llm.py" in names and "ray_tpu_torch/_kernels.py" in names
     assert "ray_tpu_torch/models/vit.py" in names
     assert "ray_tpu_torch/parallel/mesh.py" in names
+    assert {"ray_tpu_torch/core/local_runtime.py", "ray_tpu_torch/train/trainer.py",
+            "ray_tpu_torch/tune/tuner.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

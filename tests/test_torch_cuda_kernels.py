@@ -615,6 +615,69 @@ def test_grpo_train_step_on_tiny_on_the_card(dev):
     assert set(counts) == set(PLAINS), counts
 
 
+def test_runtime_task_and_trainer_on_the_card(dev, tmp_path):
+    """The in-process runtime on the card: the GPU resource counts the
+    cards, a num_gpus=1 task gets a CUDA tensor zero-copy (the same
+    data_ptr), and a one-worker GpuTrainer (use_gpu) trains a tiny bf16
+    Llama at head dim 128 on its thread: 3 steps, each launching K1', K2
+    and K3 once a layer and no plain attention."""
+    import math
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import GpuTrainer, RunConfig, ScalingConfig
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=2, num_kv_heads=1, max_seq_len=256, dtype=torch.bfloat16,
+                      remat="save_attn")
+    L = cfg.num_layers
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        assert ray_tpu_torch.cluster_resources()["GPU"] == torch.cuda.device_count()
+        x = torch.randn((64, 64), device=dev).to(torch.bfloat16)
+
+        @ray_tpu_torch.remote(num_gpus=1)
+        def where(t):
+            return t.data_ptr(), t.device.type
+
+        assert ray_tpu_torch.get(where.remote(x)) == (x.data_ptr(), "cuda")
+        assert ray_tpu_torch.get(ray_tpu_torch.put(x)) is x
+
+        def train_fn(config):
+            from ray_tpu_torch import _kernels
+            from ray_tpu_torch.train import session
+            from ray_tpu_torch.train.step import (default_optimizer, make_train_state_factory,
+                                                  make_train_step)
+
+            opt = default_optimizer(lr=1e-2, warmup_steps=1, total_steps=50)
+            state = make_train_state_factory(cfg, opt)(seed=0, device="cuda")
+            step = make_train_step(cfg, opt)
+            tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 128))).cuda()
+            targets = torch.roll(tokens, -1, dims=1)
+            for i in range(3):
+                before = dict(_kernels.launch_counts)
+                state, metrics = step(state, tokens, targets)
+                session.report({"step": i, "loss": metrics["loss"].item(),
+                                "launches": {n: c - before.get(n, 0)
+                                             for n, c in _kernels.launch_counts.items()
+                                             if c != before.get(n, 0)}})
+
+        before = _counts()
+        r = GpuTrainer(train_fn, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                       run_config=RunConfig(name="tiny", storage_path=str(tmp_path))).fit()
+        assert r.error is None, r.error
+        want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        assert [m["launches"] for m in r.metrics_history] == [want] * 3
+        assert all(math.isfinite(m["loss"]) for m in r.metrics_history)
+        assert _delta(before) == {n: 3 * c for n, c in want.items()}
+    finally:
+        ray_tpu_torch.shutdown()
+
+
 # --------------------------------------------------------------------------- #
 # The mesh (ray_tpu_torch.parallel) at world size 1 on NCCL
 # --------------------------------------------------------------------------- #
