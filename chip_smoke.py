@@ -71,6 +71,35 @@ Phases, all of them on every run, in this order:
            torch.saved after step 2, a failure before step 3, the second
            attempt resuming from it; losses against an uninterrupted run's,
            the checkpoint's bytes and its save and load seconds.
+  serve_app  llama_1b through the port's Serve control plane
+           (ray_tpu_torch.serve), seed-0 weights on the card:
+           (a) LLMDeployment(model="llama_1b", num_slots=64, decode_chunk=32)
+           called directly: 4 prompts (32, 64, 128, 256 tokens) one at a
+           time, 64 new tokens each, then the 64 requests of the serve phase
+           submitted together; (b) the same deployment through serve.run
+           on a replica with ray_actor_options={"num_gpus": 1} (HTTP on port
+           0): the 4 prompts one at a time through the handle, tokens equal
+           to (a)'s; (c) the 64 requests together through the handle: every
+           one 64 tokens, flash_fwd and paged_attention launched exactly once
+           a layer for each prefill program and decode tick, no plain call;
+           wall, req/s, TTFT and latency p50/p99 beside (a)'s and the serve
+           phase's; (d) one request over HTTP to /llm and one streamed
+           through handle.options(stream=True), tokens equal to the
+           handle's; (e) serve.shutdown() and ray_tpu_torch.shutdown() leave
+           no engine thread alive.
+  rl_platform  DQN and IMPALA (ray_tpu_torch.rl) with their learners on the
+           card: (a) one make_dqn_update step of DQNConfig() (128x128,
+           batch 64 from the prioritized buffer, with its weights) and one
+           make_impala_update step of ImpalaConfig() (B8, T32), in fp32 on
+           the card and on the CPU from the same parameters and batch: loss
+           and parameters within 1e-4 relative; (b) tests/test_rl_platform.py's
+           chain runs with the learners on cuda: DQN's episode_return_mean
+           > 50 after 18 iterations, IMPALA's > 30 after 30 with mean_rho
+           finite and positive; (c) DQNConfig() and ImpalaConfig() on
+           CartPole-rt with 2 runners, 5 iterations each: env steps/s,
+           updates/s, the time sampling (or waiting for unrolls) against the
+           learner's; (d) one of (c)'s DQN runners killed behind the group's
+           back: the next sample still returns both shares.
 
 Every launch check also requires attention_plain == paged_attention_plain
 == 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version,
@@ -82,7 +111,8 @@ failure exits non-zero and prints no result. Each kernel's launches come
 from the phase whose path runs it (serve: flash_fwd, paged_attention; train:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv; the latter three also carry
 launches_vit, launches_mesh and launches_runtime, from the vit and mesh
-phases' timed steps and the runtime phase's first GpuTrainer run). A copy
+phases' timed steps and the runtime phase's first GpuTrainer run; the first
+two also carry launches_serve_app, from the serve_app phase's 64 requests). A copy
 of the results goes to build/chip_smoke.json.
 """
 
@@ -98,7 +128,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
-PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh", "runtime")
+PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh", "runtime",
+          "serve_app", "rl_platform")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -1651,6 +1682,406 @@ def _runtime_restart(rt, tmp):
             "load_s": load_s}
 
 
+
+# --------------------------------------------------------------------------- #
+# serve_app: llama_1b through the port's Serve control plane
+# --------------------------------------------------------------------------- #
+SERVE_APP_REQUESTS, SERVE_APP_TOKENS = 64, 64
+# LLMDeployment's arguments in both (a) and (b): the serve phase's slots and
+# chunk; the rest are LLMDeployment's (and LLMEngine's) defaults
+SERVE_APP_KW = dict(model="llama_1b", num_slots=64, decode_chunk=32)
+
+
+def _pct(values, q):
+    """The q-th percentile by nearest rank."""
+    xs = sorted(values)
+    return xs[max(0, math.ceil(q / 100 * len(xs)) - 1)]
+
+
+def _load_figures(results, ends, t0):
+    wall = max(ends) - t0
+    ttft = [r["ttft_s"] for r in results]
+    lat = [e - t0 for e in ends]
+    return {"requests": len(results), "wall_s": wall, "req_per_s": len(results) / wall,
+            "tok_per_s": sum(len(r["tokens"]) for r in results) / wall,
+            "p50_ttft_s": _pct(ttft, 50), "p99_ttft_s": _pct(ttft, 99),
+            "p50_latency_s": _pct(lat, 50), "p99_latency_s": _pct(lat, 99)}
+
+
+def _fmt_load(f):
+    return (f"{f['requests']} requests in {f['wall_s']:.3f} s: {f['req_per_s']:.3f} req/s, "
+            f"{f['tok_per_s']:.1f} tok/s, TTFT p50 {f['p50_ttft_s'] * 1e3:.1f} ms p99 "
+            f"{f['p99_ttft_s'] * 1e3:.1f} ms, latency from submission p50 "
+            f"{f['p50_latency_s'] * 1e3:.1f} ms p99 {f['p99_latency_s'] * 1e3:.1f} ms")
+
+
+def _run_load(call, prompts, max_tokens):
+    """All requests submitted together, each resolved on its own thread: the
+    results, the time each one was back, and the start."""
+    def one(p):
+        out = call({"tokens": p, "max_tokens": max_tokens, "timeout": 600})
+        return out, time.perf_counter()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+        done = list(pool.map(one, prompts))
+    return [d[0] for d in done], [d[1] for d in done], t0
+
+
+def _threads(name):
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == name and t.is_alive()]
+
+
+def _until_gone(name, timeout):
+    deadline = time.monotonic() + timeout
+    while _threads(name) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    return not _threads(name)
+
+
+def phase_serve_app(ctx):
+    import gc
+    import urllib.request
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _kernels, serve
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rt.is_initialized():
+        rt.shutdown()
+    cfg = LlamaConfig.llama_1b()  # what LLMDeployment(model="llama_1b") builds
+    L = cfg.num_layers
+    params = llama_init(cfg, seed=0, device="cuda")
+    kw = dict(SERVE_APP_KW, params=params)
+    n_req, max_tokens = SERVE_APP_REQUESTS, SERVE_APP_TOKENS
+    rng = torch.Generator().manual_seed(7)
+    lens = [(32, 64, 128, 256)[i % 4] for i in range(n_req)]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lens]
+    singles = prompts[:4]  # one of each length
+    out = {}
+    rt.init(num_cpus=8)
+    try:
+        # (a) the reference result: the deployment class called directly
+        direct = LLMDeployment(**kw)
+        try:
+            direct.generate({"tokens": singles[0], "max_tokens": 4, "timeout": 600})  # warm-up
+            want = [direct.generate({"tokens": p, "max_tokens": max_tokens,
+                                     "timeout": 600})["tokens"] for p in singles]
+            _kernels.reset_counts()
+            res, ends, t0 = _run_load(direct.generate, prompts, max_tokens)
+            out["direct"] = _load_figures(res, ends, t0)
+            require_no_plain(_kernels.launch_counts, "serve_app (a)")
+        finally:
+            direct.stop()
+        require(not direct.engine._thread.is_alive(),
+                "serve_app (a): the direct engine's thread did not stop")
+        del direct
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"serve_app (a) LLMDeployment called directly: {_fmt_load(out['direct'])}",
+              flush=True)
+
+        # (b) deploy on a GPU replica; the same prompts one at a time
+        t0 = time.perf_counter()
+        app = (serve.deployment(LLMDeployment, name="llm")
+               .options(ray_actor_options={"num_gpus": 1}, max_ongoing_requests=n_req)
+               .bind(**kw))
+        handle = serve.run(app, http=True, http_port=0)
+        out["deploy_s"] = time.perf_counter() - t0
+        got = [handle.generate.remote({"tokens": p, "max_tokens": max_tokens, "timeout": 600})
+               .result(timeout=600)["tokens"] for p in singles]
+        print(f"serve_app (b) serve.run with ray_actor_options={{'num_gpus': 1}}: ready in "
+              f"{out['deploy_s']:.3f} s; {len(singles)} prompts of {[len(p) for p in singles]} "
+              f"tokens one at a time: tokens equal to (a)'s {got == want}", flush=True)
+        require(got == want, "serve_app (b): tokens through serve differ from the direct "
+                f"deployment's: {[g[:8] for g in got]} against {[w[:8] for w in want]}")
+
+        # (c) the 64 requests submitted together through the handle
+        s0 = handle.engine_stats.remote().result(timeout=60)
+        _kernels.reset_counts()
+        results, ends, t0 = _run_load(
+            lambda r: handle.generate.remote(r).result(timeout=600), prompts, max_tokens)
+        counts = dict(_kernels.launch_counts)
+        s1 = handle.engine_stats.remote().result(timeout=60)
+        out["serve"] = _load_figures(results, ends, t0)
+        for r in results:
+            require(len(r["tokens"]) == max_tokens,
+                    f"serve_app (c): a request returned {len(r['tokens'])} tokens")
+        require_no_plain(counts, "serve_app (c)")
+        programs = s1["prefill_programs"] - s0["prefill_programs"]
+        ticks = s1["decode_steps"] - s0["decode_steps"]
+        require(counts.get("flash_fwd", 0) > 0 and counts.get("paged_attention", 0) > 0,
+                f"serve_app (c): the kernels were not launched: {counts}")
+        require(counts.get("flash_fwd") == L * programs
+                and counts.get("paged_attention") == L * ticks,
+                f"serve_app (c): launches {counts} against {programs} prefill programs and "
+                f"{ticks} decode ticks of {L} layers")
+        launches = {n: counts.get(n, 0) for n in ("flash_fwd", "paged_attention")}
+        out.update(launches=launches, prefill_programs=programs, decode_ticks=ticks)
+        ctx["serve_app_launches"] = launches
+        direct_fig, serve_phase = out["direct"], ctx["serve"]
+        print(f"serve_app (c) on {ctx['card']} ({ctx['smi']}): through serve: "
+              f"{_fmt_load(out['serve'])}; launches {launches} ({programs} prefill programs, "
+              f"{ticks} decode ticks), plain 0", flush=True)
+        print(f"serve_app (c) beside: the same deployment called directly (a) "
+              f"{direct_fig['req_per_s']:.3f} req/s, TTFT p50 {direct_fig['p50_ttft_s'] * 1e3:.1f} "
+              f"ms; the serve phase's LLMEngine (max_seq_len 2048, its own buckets and pool) "
+              f"{serve_phase['req_per_s']:.3f} req/s, TTFT p50 "
+              f"{serve_phase['p50_ttft_s'] * 1e3:.1f} ms; serve costs "
+              f"{out['serve']['wall_s'] - direct_fig['wall_s']:.3f} s of wall over (a)",
+              flush=True)
+
+        # (d) HTTP through the proxy, and streaming through the handle
+        addr = serve.http_address()
+        req = urllib.request.Request(
+            f"{addr}/llm", data=json.dumps({"tokens": singles[1], "max_tokens": max_tokens,
+                                            "timeout": 600}).encode(),
+            headers={"Content-Type": "application/json"})
+        via_http = json.loads(urllib.request.urlopen(req, timeout=600).read())["tokens"]
+        records = list(handle.options(stream=True).remote(
+            {"tokens": singles[2], "max_tokens": max_tokens, "timeout": 600, "stream": True}))
+        streamed = [r["token"] for r in records if "token" in r]
+        print(f"serve_app (d): HTTP {addr}/llm tokens equal to the handle's {via_http == got[1]}; "
+              f"{len(records)} streamed records, tokens equal to the handle's "
+              f"{streamed == got[2]}", flush=True)
+        require(via_http == got[1], "serve_app (d): HTTP tokens differ from the handle's")
+        require(streamed == got[2] and records[-1].get("done") is True,
+                "serve_app (d): streamed tokens differ from the handle's")
+    finally:
+        serve.shutdown()
+        # the controller's loop reconciles once more after its shutdown flag
+        # (as the JAX package's does): it ends before the runtime goes
+        loop_ended = _until_gone("serve-control-loop", 10)
+        rt.shutdown()
+    # (e) teardown: the replica's engine stopped with serve
+    engines_gone = _until_gone("llm-engine", 30)
+    require(loop_ended and engines_gone, f"serve_app (e): threads alive: "
+            f"{_threads('serve-control-loop') + _threads('llm-engine')}")
+    print("serve_app (e): serve.shutdown() and ray_tpu_torch.shutdown(): no engine thread and "
+          "no control loop alive", flush=True)
+    ctx["serve_app"] = out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# rl_platform: DQN and IMPALA learners on the card
+# --------------------------------------------------------------------------- #
+# one update, card against CPU in fp32 from the same parameters and batch:
+# |card - cpu| / |cpu| for the loss, max |card - cpu| / max |cpu| for each
+# parameter after the step
+RL_UPDATE_RTOL = 1e-4
+# tests/test_rl_platform.py's configurations and thresholds
+RL_CHAIN = {"n": 6, "max_steps": 20}
+RL_FULL_ITERS = 5
+
+
+def _rl_rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _rl_update_check(torch, name, make_update, params_cpu, extra, batch, lr):
+    """One update on the CPU and on the card from the same parameters and
+    batch: (loss rel err, worst parameter rel err)."""
+    from ray_tpu_torch.rl.dqn import as_tree, params_to
+    from ray_tpu_torch.train.step import _leaves, adamw
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = params_to(params_cpu, dev, copy=True)
+        args = [params_to(e, dev, copy=True) for e in extra]
+        opt = adamw(lr)
+        state = opt.init(as_tree(p))
+        res = make_update(opt)(p, *args, state, batch)
+        outs[dev] = (res[-2].item(), [t.cpu() for t in _leaves(as_tree(p))])
+    loss_err = abs(outs["cuda"][0] - outs["cpu"][0]) / abs(outs["cpu"][0])
+    param_err = max(_rl_rel(a, b) for a, b in zip(outs["cuda"][1], outs["cpu"][1]))
+    print(f"rl_platform (a) {name}: loss card {outs['cuda'][0]:.8f} cpu {outs['cpu'][0]:.8f}, "
+          f"relative error {loss_err:.3e}; parameters after the step, worst max|diff|/max|cpu| "
+          f"{param_err:.3e} (tol {RL_UPDATE_RTOL})", flush=True)
+    require(loss_err <= RL_UPDATE_RTOL and param_err <= RL_UPDATE_RTOL,
+            f"rl_platform (a) {name}: the card's update differs from the CPU's")
+    return {"loss_rel_err": loss_err, "param_rel_err": param_err}
+
+
+def _rl_updates(torch):
+    """rl_platform (a): DQNConfig() (hidden 128x128, batch 64 from the
+    prioritized buffer, with its weights) and ImpalaConfig() (B8, T32)."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import dqn, impala
+    from ray_tpu_torch.rl.replay_buffer import PrioritizedReplayBuffer
+
+    print(f"rl_platform (a): fp32 matmuls on the card allow TF32: "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    require(not torch.backends.cuda.matmul.allow_tf32, "rl_platform (a): TF32 is on")
+    rng = np.random.default_rng(0)
+    dcfg, n = dqn.DQNConfig(), 2048
+    buf = PrioritizedReplayBuffer(dcfg.buffer_capacity, seed=0)
+    buf.add_batch({"obs": rng.standard_normal((n, 4)).astype(np.float32),
+                   "actions": rng.integers(0, 2, n), "rewards": np.ones(n, np.float32),
+                   "next_obs": rng.standard_normal((n, 4)).astype(np.float32),
+                   "dones": (rng.random(n) < 0.05).astype(np.float32)})
+    buf.update_priorities(np.arange(n), rng.standard_normal(n))
+    batch = {k: v for k, v in buf.sample(dcfg.batch_size).items() if k != "indices"}
+    out = {"dqn": _rl_update_check(
+        torch, "DQN", lambda opt: dqn.make_dqn_update(dcfg, opt),
+        dqn.q_init(4, 2, dcfg.hidden, seed=0, device="cpu"),
+        [dqn.q_init(4, 2, dcfg.hidden, seed=1, device="cpu")], batch, dcfg.lr)}
+    icfg = impala.ImpalaConfig()
+    B, T = icfg.batch_unrolls, icfg.unroll_len
+    ibatch = {"obs": rng.standard_normal((B, T, 4)).astype(np.float32),
+              "next_obs_last": rng.standard_normal((B, 4)).astype(np.float32),
+              "actions": rng.integers(0, 2, (B, T)), "rewards": np.ones((B, T), np.float32),
+              "dones": (rng.random((B, T)) < 0.05).astype(np.float32),
+              "behavior_logits": (rng.standard_normal((B, T, 2)) * 0.5).astype(np.float32)}
+    out["impala"] = _rl_update_check(
+        torch, "IMPALA", lambda opt: impala.make_impala_update(icfg, opt),
+        impala.ac_init(4, 2, icfg.hidden, seed=0, device="cpu"), [], ibatch, icfg.lr)
+    return out
+
+
+def _rl_run(trainer, iters, owner, name):
+    """``iters`` train() calls; the time spent in ``owner.name`` (the
+    runners' sampling, or the wait for unrolls) against the rest (the
+    learner: buffer, updates, the params' publication)."""
+    waits = []
+    inner = getattr(owner, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            waits.append(time.perf_counter() - t)
+
+    setattr(owner, name, timed)
+    results = []
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        results.append(trainer.train())
+    wall = time.perf_counter() - t0
+    setattr(owner, name, inner)
+    sample_s = sum(waits)
+    return results, {"iters": iters, "wall_s": wall, "s_per_iter": wall / iters,
+                     "sample_s": sample_s, "learner_s": wall - sample_s}
+
+
+def _rl_dqn(rt, cfg, iters, label):
+    from ray_tpu_torch.rl import DQNTrainer
+
+    trainer = DQNTrainer(cfg)  # no device: the card
+    try:
+        require(trainer.params[0]["w"].device.type == "cuda",
+                f"rl_platform {label}: DQN's parameters are on {trainer.params[0]['w'].device}")
+        results, f = _rl_run(trainer, iters, trainer.runners, "sample")
+        steps = sum(r["env_steps_this_iter"] for r in results)
+        updates = sum(cfg.updates_per_iter for r in results if r["loss"] is not None)
+        f.update(env_steps=steps, env_steps_per_s=steps / f["wall_s"], updates=updates,
+                 updates_per_s=updates / f["wall_s"],
+                 updates_per_learner_s=updates / f["learner_s"] if updates else 0.0,
+                 episode_return_mean=results[-1]["episode_return_mean"],
+                 loss=results[-1]["loss"])
+        print(f"rl_platform {label} DQN on {trainer.device}: {iters} iterations in "
+              f"{f['wall_s']:.3f} s ({f['s_per_iter'] * 1e3:.1f} ms each), {steps} env steps "
+              f"({f['env_steps_per_s']:.0f}/s), {updates} updates ({f['updates_per_s']:.1f}/s of "
+              f"wall, {f['updates_per_learner_s']:.1f}/s of learner time); sampling "
+              f"{f['sample_s']:.3f} s, learner {f['learner_s']:.3f} s; episode_return_mean "
+              f"{f['episode_return_mean']}, loss {f['loss']}", flush=True)
+        if label == "(c)":
+            # (d) one runner killed behind the group's back
+            from ray_tpu_torch.rl.dqn import params_to
+
+            ref = rt.put(params_to(trainer.params, "cpu", copy=True))
+            rt.kill(trainer.runners._runners[0])
+            batches = trainer.runners.sample(ref, 16, explore=1.0)
+            shares = sorted(b["worker_index"] for b in batches)
+            print(f"rl_platform (d): runner 0 killed; the next sample returned shares of "
+                  f"workers {shares}, {[len(b['obs']) for b in batches]} steps each", flush=True)
+            require(shares == [0, 1] and all(len(b["obs"]) == 16 for b in batches),
+                    f"rl_platform (d): sample after a kill returned {shares}")
+            f["fault_tolerance_shares"] = shares
+    finally:
+        trainer.stop()
+    return f
+
+
+def _rl_impala(cfg, iters, label, unrolls):
+    import numpy as np
+
+    from ray_tpu_torch.rl import ImpalaTrainer
+
+    trainer = ImpalaTrainer(cfg, total_unrolls_per_runner=unrolls)
+    try:
+        require(trainer.params["pi"]["w"].device.type == "cuda",
+                f"rl_platform {label}: IMPALA's parameters are on {trainer.params['pi']['w'].device}")
+        results, f = _rl_run(trainer, iters, trainer, "_next_unrolls")
+        steps = sum(r["env_steps_this_iter"] for r in results)
+        last = results[-1]
+        f.update(env_steps=steps, env_steps_per_s=steps / f["wall_s"],
+                 updates_per_s=iters / f["wall_s"], updates_per_learner_s=iters / f["learner_s"],
+                 episode_return_mean=last["episode_return_mean"], mean_rho=last["mean_rho"],
+                 loss=last["loss"])
+        print(f"rl_platform {label} IMPALA on {trainer.device}: {iters} iterations in "
+              f"{f['wall_s']:.3f} s ({f['s_per_iter'] * 1e3:.1f} ms each), {steps} env steps "
+              f"({f['env_steps_per_s']:.0f}/s), {iters} updates ({f['updates_per_s']:.1f}/s of "
+              f"wall, {f['updates_per_learner_s']:.1f}/s of learner time); waiting for unrolls "
+              f"{f['sample_s']:.3f} s, learner {f['learner_s']:.3f} s; episode_return_mean "
+              f"{f['episode_return_mean']}, mean_rho {f['mean_rho']:.4f}", flush=True)
+        require(np.isfinite(f["mean_rho"]) and f["mean_rho"] > 0,
+                f"rl_platform {label}: mean_rho {f['mean_rho']}")
+    finally:
+        trainer.stop()
+    return f
+
+
+def phase_rl_platform(ctx):
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import DQNConfig, ImpalaConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"a": _rl_updates(torch)}
+    if rt.is_initialized():
+        rt.shutdown()
+    rt.init(num_cpus=8)
+    try:
+        # (b) tests/test_rl_platform.py's learning runs, learners on the card
+        dqn_b = _rl_dqn(rt, DQNConfig(
+            env="Chain-rt", env_config=RL_CHAIN, hidden=(32,), num_runners=2, rollout_steps=64,
+            buffer_capacity=5_000, learning_starts=128, batch_size=32, updates_per_iter=16,
+            epsilon_decay_iters=10, target_sync_interval=4, seed=0), 18, "(b)")
+        imp_b = _rl_impala(ImpalaConfig(
+            env="Chain-rt", env_config=RL_CHAIN, hidden=(32,), num_runners=2, unroll_len=20,
+            batch_unrolls=4, entropy_coef=0.02, lr=3e-3, seed=0), 30, "(b)", 2_000)
+        out["b"] = {"dqn": dqn_b, "impala": imp_b}
+        require(dqn_b["episode_return_mean"] is not None and dqn_b["episode_return_mean"] > 50,
+                f"rl_platform (b): DQN episode_return_mean {dqn_b['episode_return_mean']} <= 50")
+        require(imp_b["episode_return_mean"] is not None and imp_b["episode_return_mean"] > 30,
+                f"rl_platform (b): IMPALA episode_return_mean {imp_b['episode_return_mean']} "
+                f"<= 30")
+        # (c) full width: DQNConfig() and ImpalaConfig() on CartPole-rt, 2 runners;
+        # (d) runs on (c)'s DQN trainer
+        out["c"] = {"dqn": _rl_dqn(rt, DQNConfig(), RL_FULL_ITERS, "(c)"),
+                    "impala": _rl_impala(ImpalaConfig(), RL_FULL_ITERS, "(c)", 1_000)}
+    finally:
+        rt.shutdown()
+    print(f"rl_platform on {ctx['card']} ({ctx['smi']}): done", flush=True)
+    ctx["rl_platform"] = out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -1693,6 +2124,8 @@ def main() -> int:
             entry["launches_mesh"] = ctx["mesh_launches"].get(entry["name"], 0)
             # and in the runtime phase's first GpuTrainer run (8 llama_1b steps)
             entry["launches_runtime"] = ctx["runtime_launches"].get(entry["name"], 0)
+        else:  # K1 and K4 in the serve_app phase's 64 requests through serve
+            entry["launches_serve_app"] = ctx["serve_app_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -1702,7 +2135,8 @@ def main() -> int:
               "peaks": ctx["peaks_key"], "kernels": kernels,
               "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
               "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"], "mesh": ctx["mesh"],
-              "runtime": ctx["runtime"]}
+              "runtime": ctx["runtime"], "serve_app": ctx["serve_app"],
+              "rl_platform": ctx["rl_platform"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

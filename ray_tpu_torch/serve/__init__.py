@@ -1,2 +1,50 @@
-"""Serving: the LLM engine (serve/llm.py). The serve control plane of the
-JAX package is ported in a later slice."""
+"""ray_tpu_torch.serve — model/application serving over the actor runtime
+(the port of ray_tpu.serve).
+
+Reference capability: python/ray/serve (controller, proxy, replicas, pow-2
+routing, dynamic batching, autoscaling). The flagship deployment is the
+continuous-batched LLM engine (serve.llm) with a paged KV cache on the card;
+``ray_actor_options={"num_gpus": 1}`` places its replica on a GPU.
+
+The proxy serves HTTP only: the JAX package's msgpack-RPC ingress
+(``ServeRpcClient``) comes with the port's cluster runtime.
+"""
+
+from ray_tpu_torch.serve.api import (
+    delete,
+    get_app_handle,
+    get_deployment_handle,
+    http_address,
+    http_addresses,
+    run,
+    shutdown,
+    start,
+    status,
+)
+from ray_tpu_torch.serve.batching import batch
+from ray_tpu_torch.serve.deployment import Application, AutoscalingConfig, Deployment, deployment
+from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
+from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id, multiplexed
+from ray_tpu_torch.serve import schema
+
+__all__ = [
+    "get_multiplexed_model_id",
+    "multiplexed",
+    "schema",
+    "Application",
+    "AutoscalingConfig",
+    "Deployment",
+    "DeploymentHandle",
+    "DeploymentResponse",
+    "batch",
+    "delete",
+    "deployment",
+    "get_app_handle",
+    "get_deployment_handle",
+    "http_address",
+    "http_addresses",
+    "run",
+    "shutdown",
+    "start",
+    "status",
+]

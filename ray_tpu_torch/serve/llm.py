@@ -16,8 +16,8 @@ thread-local, so the loop enters it itself. The loop logs and survives any
 exception, so a kernel that fails leaves requests waiting: callers pass a
 ``timeout`` to ``generate``.
 
-``LLMDeployment`` is a plain class here; the serve control plane is ported
-in a later slice.
+``LLMDeployment`` wraps the engine as a serve deployment; requests are
+dicts {"tokens": [...], "max_tokens": N} -> {"tokens": [...], "ttft_s": ...}.
 """
 
 from __future__ import annotations
@@ -414,8 +414,16 @@ class LLMEngine:
 
 
 class LLMDeployment:
-    """Plain wrapper around LLMEngine with the JAX package's request shape:
-    {"tokens": [...], "max_tokens": N} -> {"tokens": [...], "ttft_s": ...}."""
+    """Serve deployment wrapping LLMEngine. Construct via serve.deployment,
+    with one card for the replica:
+
+        app = serve.deployment(LLMDeployment, name="llm").options(
+            ray_actor_options={"num_gpus": 1}).bind(model="llama_1b")
+        handle = serve.run(app)
+        handle.generate.remote({"tokens": [...], "max_tokens": 32}).result()
+
+    ``device`` is the engine's: None means the card (it raises with no card
+    present); the CPU only when asked for."""
 
     def __init__(self, model: str = "tiny", num_slots: int = 8,
                  decode_chunk: int = 8, max_seq_len: Optional[int] = None,
@@ -457,3 +465,10 @@ class LLMDeployment:
 
     def stop(self) -> None:
         self.engine.stop()
+
+    def __del__(self):
+        # the replica's graceful shutdown calls this before the actor goes
+        try:
+            self.engine.stop()
+        except Exception:  # noqa: BLE001
+            pass

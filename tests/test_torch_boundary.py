@@ -40,6 +40,8 @@ def test_the_port_has_files_to_check():
     assert "ray_tpu_torch/parallel/mesh.py" in names
     assert {"ray_tpu_torch/core/local_runtime.py", "ray_tpu_torch/train/trainer.py",
             "ray_tpu_torch/tune/tuner.py"} <= names
+    assert {"ray_tpu_torch/serve/api.py", "ray_tpu_torch/serve/proxy.py",
+            "ray_tpu_torch/rl/dqn.py", "ray_tpu_torch/rl/impala.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -678,6 +678,75 @@ def test_runtime_task_and_trainer_on_the_card(dev, tmp_path):
         ray_tpu_torch.shutdown()
 
 
+def test_llm_deployment_via_serve_on_the_card(dev):
+    """A tiny bf16 LLMDeployment behind serve.run on a num_gpus=1 replica
+    gives the direct deployment's greedy tokens; its attention runs the
+    plain versions (head dim 32, by the dispatch rule)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    params = llama_init(LlamaConfig.tiny(), 3, dev)
+    kw = dict(model="tiny", num_slots=2, decode_chunk=4, max_seq_len=64, params=params)
+    prompts = [[3, 14, 15, 92, 65], [1, 2, 3], list(range(20, 45))]
+    direct = LLMDeployment(**kw)
+    try:
+        want = [direct.generate({"tokens": p, "max_tokens": 6, "timeout": 120})["tokens"]
+                for p in prompts]
+    finally:
+        direct.stop()
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        before = _counts()
+        app = serve.deployment(LLMDeployment, name="llm").options(
+            ray_actor_options={"num_gpus": 1}).bind(**kw)
+        handle = serve.run(app, http=False)
+        got = [handle.generate.remote({"tokens": p, "max_tokens": 6, "timeout": 120})
+               .result(timeout=120)["tokens"] for p in prompts]
+        counts = _delta(before)
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    assert got == want
+    assert set(counts) == set(PLAINS), counts
+
+
+def test_dqn_update_on_the_card_matches_the_cpu(dev):
+    """One DQN update (DQNConfig(): 128x128, double-Q, prioritized weights)
+    in fp32 on the card against the CPU's from the same parameters and
+    batch: loss, td and parameters within 1e-4 relative."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import dqn
+    from ray_tpu_torch.train.step import _leaves, adamw
+
+    cfg = dqn.DQNConfig()
+    rng = np.random.default_rng(0)
+    B = cfg.batch_size
+    batch = {"obs": rng.standard_normal((B, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, B), "rewards": np.ones(B, np.float32),
+             "next_obs": rng.standard_normal((B, 4)).astype(np.float32),
+             "dones": (rng.random(B) < 0.1).astype(np.float32),
+             "weights": rng.uniform(0.2, 1.0, B).astype(np.float32)}
+    online = dqn.q_init(4, 2, cfg.hidden, seed=0, device="cpu")
+    target = dqn.q_init(4, 2, cfg.hidden, seed=1, device="cpu")
+    out = {}
+    for where in ("cpu", dev):
+        p = dqn.params_to(online, where, copy=True)
+        opt = adamw(cfg.lr)
+        state = opt.init(dqn.as_tree(p))
+        _, _, loss, td = dqn.make_dqn_update(cfg, opt)(
+            p, dqn.params_to(target, where, copy=True), state, batch)
+        out[str(where)] = (loss.cpu(), td.cpu(), [t.cpu() for t in _leaves(dqn.as_tree(p))])
+    (lc, tc, pc), (lg, tg, pg) = out["cpu"], out[str(dev)]
+    assert p[0]["w"].device.type == "cuda"
+    assert _rel(lg, lc) <= 1e-4 and _rel(tg, tc) <= 1e-4
+    assert max(_rel(a, b) for a, b in zip(pg, pc)) <= 1e-4
+
+
 # --------------------------------------------------------------------------- #
 # The mesh (ray_tpu_torch.parallel) at world size 1 on NCCL
 # --------------------------------------------------------------------------- #
