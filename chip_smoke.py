@@ -100,6 +100,29 @@ Phases, all of them on every run, in this order:
            updates/s, the time sampling (or waiting for unrolls) against the
            learner's; (d) one of (c)'s DQN runners killed behind the group's
            back: the next sample still returns both shares.
+  c5       fault C5's shapes and dtypes: (a) K4 at groups 1, 2, 8, 16 and 32
+           (D128) and group 4 at D256, bf16, against its plain version at
+           the serving table and a long ragged shape, twice bitwise equal,
+           event- and graph-timed beside the plain version; (b) every
+           CUDA-core kernel of csrc/attention_simt.cu in fp32 at D64/128/256
+           (atol = rtol = 2e-5) and bf16 at D256 against its plain version,
+           then timed at the c5 paths' shapes beside SDPA and its bound (fp32
+           operations at the CUDA cores' fp32 peak; bf16 at the bf16
+           tensor-core peak); (c)
+           LLMEngine at llama_1b's width with 2 layers for MHA, group 8 and
+           D256 in bf16 and group 4 in fp32, 8 requests each, exact
+           launches of each route's kernels, fp32 tokens equal to the plain
+           path's; (d) fp32 training (B2 S512) against the plain path: every
+           gradient of the first step (relative norm, leaf by leaf), then 3
+           train steps at a nonzero learning rate from the first update,
+           each loss.
+  data     512 seeded 224 px PNGs through read_images, map_batches,
+           streaming_split(1) and iter_torch_batches(batch_size=32) into 20
+           ViT-L/16 steps (ray_tpu_torch.bench_data_train): images/s, the
+           input-starved fraction, the per-op stats; 24 launches each of
+           K1', K2, K3 a step; the first 3 losses bit-equal to the same
+           batches fed directly; one 2-worker GpuTrainer(datasets=...) run
+           on CPU workers counting rows.
 
 Every launch check also requires attention_plain == paged_attention_plain
 == 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version,
@@ -110,10 +133,14 @@ last line is {"ok": true, "device": {...}} only when every phase passed. Any
 failure exits non-zero and prints no result. Each kernel's launches come
 from the phase whose path runs it (serve: flash_fwd, paged_attention; train:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv; the latter three also carry
-launches_vit, launches_mesh and launches_runtime, from the vit and mesh
-phases' timed steps and the runtime phase's first GpuTrainer run; the first
-two also carry launches_serve_app, from the serve_app phase's 64 requests). A copy
-of the results goes to build/chip_smoke.json.
+launches_vit, launches_mesh, launches_runtime and launches_data, from the
+vit and mesh phases' timed steps, the runtime phase's first GpuTrainer run
+and the data phase's steps; the first two also carry launches_serve_app,
+from the serve_app phase's 64 requests, and launches_c5, from the c5
+phase's bf16 engines; the CUDA-core kernels' launches come from the c5
+phase's fp32 and D256 engines and its fp32 train steps). paged_attention's
+entry also carries the c5 phase's widened shapes, its keys suffixed
+_g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -129,7 +156,7 @@ from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh", "runtime",
-          "serve_app", "rl_platform")
+          "serve_app", "rl_platform", "c5", "data")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -222,11 +249,13 @@ def cuda_ms(torch, fn, arg_sets, iters: int = 20, warmup: int = 3) -> float:
 def graph_ms(torch, fn, arg_sets, iters: int = 20, replays: int = 5) -> float:
     """Mean ms per call of ``iters`` calls (cycling over ``arg_sets``) captured
     once in a CUDA graph, replayed ``replays`` times between CUDA events: the
-    device's time, without the host's cost of each launch."""
+    device's time, without the host's cost of each launch. The capture is
+    thread-local: a thread an earlier phase left running (an env runner
+    finishing its rollout) may call CUDA meanwhile without invalidating it."""
     fn(*arg_sets[0])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
@@ -262,7 +291,7 @@ def phase_device(ctx):
     secs = _kernels.build_all()
     ctx["build_s"] = secs
     print(f"kernel build: {secs:.1f} s", flush=True)
-    for name in ("flash_fwd", "flash_bwd", "paged_attention"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention", "attention_simt"):
         for line in _kernels.build_log(name).splitlines():
             if ("registers" in line or "spill" in line or "entry function" in line
                     or "error" in line.lower()):
@@ -354,20 +383,7 @@ def _paged_attention_kernel(ctx):
     nh, nkv, D, ps, max_pages = 16, 4, 128, 64, 32
 
     def paged_inputs(seed, B, lo, hi, total_pages, trash_slots):
-        g = torch.Generator().manual_seed(seed)
-        slot_pages = (total_pages - 1) // B
-        lengths = torch.randint(lo, hi + 1, (B,), generator=g, dtype=torch.int32)
-        lengths[:trash_slots] = 1             # inactive-like slots: all-trash table rows
-        perm = torch.randperm(total_pages - 1, generator=g) + 1
-        table = torch.zeros((B, max_pages), dtype=torch.int32)
-        for s in range(trash_slots, B):
-            n = -(-int(lengths[s]) // ps)
-            table[s, :n] = perm[s * slot_pages: s * slot_pages + n]
-        gd = torch.Generator(device="cuda").manual_seed(seed)
-        kp = torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda").to(torch.bfloat16)
-        vp = torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda").to(torch.bfloat16)
-        q = (torch.randn((B, nh, D), generator=gd, device="cuda") * D ** -0.5).to(torch.bfloat16)
-        return q, kp, vp, table.cuda(), lengths.cuda()
+        return _paged_inputs(torch, seed, B, lo, hi, total_pages, trash_slots, nh, nkv, D)
 
     # (a) the serve phase's engine: 64 slots, page size 64, 513 pages, and a
     # block table as wide as max_seq_len / page_size = 2048 / 64 = 32 pages;
@@ -423,6 +439,29 @@ def _paged_attention_kernel(ctx):
         torch.cuda.empty_cache()
     entry["max_abs_err"] = max(errs)
     return entry
+
+
+def _paged_inputs(torch, seed, B, lo, hi, total_pages, trash_slots, nh, nkv, D, ps=64,
+                  max_pages=32, dtype=None):
+    """Inputs of paged_attention on the card: B slots of lo..hi rows, each on
+    its own random pages of a pool of ``total_pages`` (page 0 the trash
+    page); the first ``trash_slots`` slots hold 1 row and an all-zero table
+    row, as inactive slots do. q is pre-scaled."""
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    slot_pages = (total_pages - 1) // B
+    lengths = torch.randint(lo, hi + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[:trash_slots] = 1             # inactive-like slots: all-trash table rows
+    perm = torch.randperm(total_pages - 1, generator=g) + 1
+    table = torch.zeros((B, max_pages), dtype=torch.int32)
+    for s in range(trash_slots, B):
+        n = -(-int(lengths[s]) // ps)
+        table[s, :n] = perm[s * slot_pages: s * slot_pages + n]
+    gd = torch.Generator(device="cuda").manual_seed(seed)
+    kp = torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda").to(dtype)
+    vp = torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda").to(dtype)
+    q = (torch.randn((B, nh, D), generator=gd, device="cuda") * D ** -0.5).to(dtype)
+    return q, kp, vp, table.cuda(), lengths.cuda()
 
 
 def _grad_ratio(out, ref) -> float:
@@ -2082,6 +2121,585 @@ def phase_rl_platform(ctx):
     ctx["rl_platform"] = out
 
 
+# --------------------------------------------------------------------------- #
+# c5: K4 at any GQA group and at D256; fp32 (and bf16 at D256) through the
+# CUDA-core kernels of attention_simt.cu; llama_1b's width at 2 layers served
+# and trained in those shapes and dtypes
+# --------------------------------------------------------------------------- #
+SIMT_SRC = "ray_tpu_torch/csrc/attention_simt.cu"
+# fp32 kernels against their plain versions (fp32 math, full fp32 products):
+# the JAX tests' fp32 flash tolerance (tests/test_ops_attention.py),
+# elementwise |kernel - plain| <= F32_TOL + F32_TOL |plain|
+F32_TOL = 2e-5
+# fp32 FLOP/s on the CUDA cores (NVIDIA's data sheets, dense): the fp32
+# SIMT kernels' bound is their operations at this rate; the bf16 instances'
+# is at the card's bf16 tensor-core peak, the peak for their inputs' type
+FP32_FLOPS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H200 SXM": 67e12}
+# K4's widened shapes (nh, n_kv, D): groups 1, 2, 8, 16 and 32 at D128, group
+# 4 at D256
+C5_K4 = ((16, 16, 128), (16, 8, 128), (16, 2, 128), (16, 1, 128), (32, 1, 128), (16, 4, 256))
+C5_LAYERS = 2
+# the c5 engines' prefill (8 prompts in the 128 bucket) and the c5 train
+# step's attention (llama_1b's heads, B2 S512): where the SIMT kernels are
+# timed
+C5_PREFILL_ATTN = (8, 128, 128, 16, 4, 128, True)
+C5_PREFILL_D256 = (8, 128, 128, 8, 2, 256, True)
+C5_TRAIN_ATTN = (2, 512, 512, 16, 4, 128, True)
+C5_ENGINE_KW = dict(paged=True, num_slots=8, page_size=64, decode_chunk=8, max_seq_len=512,
+                    prefill_buckets=[128])
+# fp32 training, kernels against the plain path: both fp32, only the order
+# of the attention sums differs (F32_TOL-level outputs). Each loss within
+# C5_LOSS_RTOL; each gradient leaf within C5_GRAD_RTOL in relative norm,
+# ||kernels - plain|| / ||plain|| (the JAX tests' fp32 gradient tolerance)
+C5_LOSS_RTOL = 1e-5
+C5_GRAD_RTOL = 1e-4
+
+
+def _f32_ratio(out, ref) -> float:
+    """max |out - ref| / (F32_TOL + F32_TOL |ref|): the check passes at <= 1."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs() / (F32_TOL + F32_TOL * ref.abs())).max().item()
+
+
+def _case(torch, shape, seed, dtype):
+    b, sq, skv, hq, hkv, d, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").to(dtype)
+            for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d), (b, sq, hq, d))]
+
+
+def phase_c5(ctx):
+    import collections
+    import threading
+
+    import torch
+
+    others = collections.Counter(t.name.split("-")[0] for t in threading.enumerate()
+                                 if t is not threading.main_thread())
+    print(f"c5: threads alive besides the main one (by name prefix): {dict(others)}",
+          flush=True)
+
+    # the plain versions in full fp32 (torch's default; stated, not assumed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx["c5"] = {"k4_widened": _c5_paged_widened(ctx)}
+    _c5_simt_kernels(ctx)
+    _c5_serve(ctx)
+    _c5_train(ctx)
+
+
+def _c5_paged_widened(ctx):
+    """K4 at each C5_K4 shape, bf16, against its plain version at the serving
+    table (64 slots of 1..512 rows, page size 64, 32-page rows) and at a
+    ragged long shape (4 slots of 1537..2048 rows); twice, bitwise equal;
+    timed at the serving table, event-timed (``ms``) and inside a CUDA
+    graph (``device_ms``: the device alone, without the wrapper's host
+    time), beside its plain version (``plain_ms``). Each shape's numbers
+    also go on K4's entry of the kernels line, keys suffixed ``_g<group>_d<D>``."""
+    import torch
+
+    from ray_tpu_torch.models import paged_decode as pd
+
+    out = {}
+    for nh, nkv, D in C5_K4:
+        errs = []
+        for B, lo, hi, total, trash, seed in ((64, 1, 512, 513, 4, 90), (4, 1537, 2048, 129, 0, 91)):
+            args = _paged_inputs(torch, seed + nh + nkv, B, lo, hi, total, trash, nh, nkv, D)
+            got, again = pd.paged_attention(*args), pd.paged_attention(*args)
+            ref = pd._paged_attention_reference(*args, 1.0)
+            torch.cuda.synchronize()
+            ratio = close_ratio(got, ref)
+            errs.append((got.float() - ref.float()).abs().max().item())
+            require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+                    f"c5 paged_attention nh{nh} n_kv{nkv} D{D} B{B}: ratio {ratio}")
+            require(torch.equal(got, again), f"c5 paged_attention nh{nh} n_kv{nkv} D{D} B{B}: "
+                    "two launches differ")
+            del args, got, again, ref
+        sets = [_paged_inputs(torch, 95 + i, 64, 1, 512, 513, 4, nh, nkv, D) for i in range(2)]
+        ms = cuda_ms(torch, pd.paged_attention, sets)
+        dev_ms = graph_ms(torch, pd.paged_attention, sets)
+        plain_ms = cuda_ms(torch, lambda *a: pd._paged_attention_reference(*a, 1.0), sets,
+                           iters=5)
+        rows = sum(int(a[4].sum()) for a in sets) / len(sets)
+        bms, by = bound_ms(4.0 * nh * D * rows, 2.0 * (2 * 64 * nh * D + 2 * rows * nkv * D)
+                           + 4.0 * 64 * 33, ctx["peaks"])
+        key = f"g{nh // nkv}_d{D}"
+        out[key] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None, "max_abs_err": max(errs), "nh": nh,
+                    "n_kv": nkv, "D": D}
+        ctx["k4"].update({f"{k}_{key}": out[key][k] for k in
+                          ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                           "max_abs_err")})
+        ctx["k4"][f"shape_{key}"] = [64, nh, nkv, D, 64, 32, 1, 512]
+        print(f"c5 paged_attention group {nh // nkv} (nh {nh}, n_kv {nkv}) D{D}: max_abs_err "
+              f"{max(errs):.3e} (atol {KERNEL_ATOL} + rtol {KERNEL_RTOL} |plain|), bitwise "
+              f"repeatable; 64 slots: {ms:.5f} ms, device (graph) {dev_ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, bound {bms:.5f} ms ({by}) on {ctx['card']}", flush=True)
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def _c5_simt_kernels(ctx):
+    """Every SIMT kernel against its plain version: fp32 at D64/128/256
+    (F32_TOL), bf16 at D256 (the bf16 tolerances of the kernels phase); then
+    each timed at the c5 paths' shapes, beside its plain version, SDPA where
+    one call computes the same function, and its fp32 bound."""
+    import torch
+
+    from ray_tpu_torch.models import paged_decode as pd
+    from ray_tpu_torch.ops import attention as ta
+
+    errs = {k: [] for k in ("k1s", "k1ls", "k2s", "k3s", "k4s")}
+    cases = [(dtype, (b, sq, skv, hq, hkv, d, causal))
+             for d in (64, 128, 256)
+             for dtype, b, sq, skv, hq, hkv, causal in (
+                 (torch.float32, 2, 100, 300, 8, 2, True), (torch.float32, 2, 77, 50, 4, 1, False),
+                 (torch.float32, 1, 129, 129, 4, 4, True))]
+    cases += [(torch.bfloat16, (2, 100, 300, 8, 2, 256, True)),
+              (torch.bfloat16, (1, 196, 196, 4, 4, 256, False))]
+    for i, (dtype, shape) in enumerate(cases):
+        causal, scale = shape[-1], shape[5] ** -0.5
+        q, k, v, dout = _case(torch, shape, 200 + i, dtype)
+        f32 = dtype == torch.float32
+        out = ta.flash_attention(q, k, v, causal=causal)
+        out_l, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+        delta = ta._delta(out_l, dout, out_lo)
+        dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+        dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        ref, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
+        ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
+        ref_dk, ref_dv = ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
+        lse_ratio = ((lse - ref_lse).abs() / (LSE_ATOL + LSE_RTOL * ref_lse.abs())).max().item()
+        checks = [("k1s", "flash_fwd_simt out", out, ref), ("k1ls", "flash_fwd_lse_simt out", out_l, ref),
+                  ("k2s", "flash_bwd_dq_simt dq", dq, ref_dq),
+                  ("k3s", "flash_bwd_dkv_simt dk", dk, ref_dk), ("k3s", "flash_bwd_dkv_simt dv", dv, ref_dv)]
+        for key, what, got, want in checks:
+            ratio = (_f32_ratio(got, want) if f32 else
+                     close_ratio(got, want) if key in ("k1s", "k1ls") else _grad_ratio(got, want))
+            err = (got.float() - want.float()).abs().max().item()
+            errs[key].append(err)
+            require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+                    f"c5 {what} {dtype} {shape}: worst error / tolerance {ratio}")
+        require((_f32_ratio(lse, ref_lse) if f32 else lse_ratio) <= 1.0,
+                f"c5 flash_fwd_lse_simt lse {dtype} {shape} disagrees")
+        require(not f32 or not out_lo.any(), "c5: fp32 out_lo is not zero")
+        print(f"c5 SIMT flash kernels {str(dtype)[6:]} {shape}: max_abs_err out "
+              f"{errs['k1s'][-1]:.3e}, dq {errs['k2s'][-1]:.3e}, dk/dv {errs['k3s'][-1]:.3e} "
+              f"(tol {'atol = rtol = ' + str(F32_TOL) if f32 else 'bf16'})", flush=True)
+        del q, k, v, dout, out, out_l, lse, out_lo, delta, dq, dk, dv, ref, ref_lse, ref_dq, \
+            ref_dk, ref_dv
+    for nh, nkv, D in ((8, 2, 64), (16, 4, 128), (16, 16, 128), (8, 2, 256)):
+        args = _paged_inputs(torch, 300 + D + nkv, 8, 1, 512, 65, 1, nh, nkv, D,
+                             dtype=torch.float32)
+        got, ref = pd.paged_attention(*args), pd._paged_attention_reference(*args, 1.0)
+        torch.cuda.synchronize()
+        ratio = _f32_ratio(got, ref)
+        errs["k4s"].append((got - ref).abs().max().item())
+        print(f"c5 paged_attention_simt fp32 nh{nh} n_kv{nkv} D{D}: max_abs_err "
+              f"{errs['k4s'][-1]:.3e}, worst error / tolerance {ratio:.3f}", flush=True)
+        require(ratio <= 1.0, f"c5 paged_attention_simt fp32 D{D} disagrees: {ratio}")
+    torch.cuda.empty_cache()
+    _c5_time_simt(ctx, errs)
+
+
+def _c5_time_simt(ctx, errs):
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import paged_decode as pd
+    from ray_tpu_torch.ops import attention as ta
+
+    f32_peaks = (FP32_FLOPS[ctx["peaks_key"]], ctx["peaks"][1])
+
+    def sdpa_fwd(q, k, v, causal):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=causal,
+                                              enable_gqa=True)
+
+    def work(shape, esize):
+        b, sq, skv, hq, hkv, d, causal = shape
+        pairs = _visible_pairs(sq, skv, causal)
+        q_el, kv_el, rows = b * sq * hq * d, b * skv * hkv * d, b * hq * sq
+        return {"fwd": (4.0 * b * hq * d * pairs, esize * (2 * q_el + 2 * kv_el)),
+                "fwd_lse": (4.0 * b * hq * d * pairs, esize * (3 * q_el + 2 * kv_el) + 4.0 * rows),
+                "dq": (6.0 * b * hq * d * pairs, esize * (3 * q_el + 2 * kv_el) + 8.0 * rows),
+                "dkv": (8.0 * b * hq * d * pairs, esize * (2 * q_el + 4 * kv_el) + 8.0 * rows)}
+
+    def timed(shape, dtype, seed, peaks, esize):
+        causal, scale = shape[-1], shape[5] ** -0.5
+        sets = []
+        for i in range(2):
+            q, k, v, dout = _case(torch, shape, seed + i, dtype)
+            out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+            sets.append((q, k, v, dout, lse, ta._delta(out, dout, out_lo)))
+        graphs = []
+        for q, k, v, dout, _, _ in sets:
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+            graphs.append((o, leaves, dout.transpose(1, 2)))
+        lib_bwd = cuda_ms(torch, lambda o, leaves, g: torch.autograd.grad(
+            o, leaves, g, retain_graph=True), graphs, iters=5, warmup=1)
+        lib_fwd = cuda_ms(torch, lambda q, k, v, *_: sdpa_fwd(q, k, v, causal), sets, iters=5,
+                          warmup=1)
+        fns = {"fwd": (lambda q, k, v, *_: ta.flash_attention(q, k, v, causal),
+                       lambda q, k, v, *_: ta.reference_attention(q, k, v, causal), lib_fwd),
+               "fwd_lse": (lambda q, k, v, *_: ta.flash_attention_lse(q, k, v, causal),
+                           lambda q, k, v, *_: ta.reference_attention_lse(q, k, v, causal),
+                           lib_fwd),
+               "dq": (lambda *a: ta.flash_bwd_dq(*a, causal, scale),
+                      lambda *a: ta.flash_bwd_dq_reference(*a, causal, scale), lib_bwd),
+               "dkv": (lambda *a: ta.flash_bwd_dkv(*a, causal, scale),
+                       lambda *a: ta.flash_bwd_dkv_reference(*a, causal, scale), lib_bwd)}
+        res = {}
+        for name, (fn, plain, lib) in fns.items():
+            ms = cuda_ms(torch, fn, sets, iters=5, warmup=1)
+            plain_ms = cuda_ms(torch, plain, sets, iters=3, warmup=1)
+            bms, by = bound_ms(*work(shape, esize)[name], peaks)
+            res[name] = (ms, plain_ms, lib, bms, by)
+            print(f"c5 {name} SIMT {str(dtype)[6:]} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, SDPA {lib:.4f} ms ({'forward' if name.startswith('fwd') else 'backward, dq dk dv together'}), "
+                  f"bound {bms:.4f} ms ({by}) on {ctx['card']}", flush=True)
+        del sets, graphs
+        torch.cuda.empty_cache()
+        return res
+
+    prefill = timed(C5_PREFILL_ATTN, torch.float32, 400, f32_peaks, 4.0)
+    train = timed(C5_TRAIN_ATTN, torch.float32, 410, f32_peaks, 4.0)
+    d256 = timed(C5_PREFILL_D256, torch.bfloat16, 420, ctx["peaks"], 2.0)
+    meta = {"k1s": ("flash_fwd_simt", "ray_tpu/ops/attention.py:71", prefill["fwd"],
+                    C5_PREFILL_ATTN),
+            "k1ls": ("flash_fwd_lse_simt", "ray_tpu/ops/attention.py:155", train["fwd_lse"],
+                     C5_TRAIN_ATTN),
+            "k2s": ("flash_bwd_dq_simt", "ray_tpu/ops/attention.py:182", train["dq"],
+                    C5_TRAIN_ATTN),
+            "k3s": ("flash_bwd_dkv_simt", "ray_tpu/ops/attention.py:224", train["dkv"],
+                    C5_TRAIN_ATTN)}
+    for key, (name, replaces, (ms, plain_ms, lib, bms, by), shape) in meta.items():
+        sub = d256["fwd" if key == "k1s" else "fwd_lse" if key == "k1ls" else
+                   "dq" if key == "k2s" else "dkv"]
+        ctx[key] = {"name": name, "route": "cuda", "source": SIMT_SRC, "replaces": replaces,
+                    "max_abs_err": max(errs[key]), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib, "shape": list(shape),
+                    "ms_bf16_d256": sub[0], "plain_ms_bf16_d256": sub[1],
+                    "library_ms_bf16_d256": sub[2], "bound_ms_bf16_d256": sub[3],
+                    "bound_by_bf16_d256": sub[4],
+                    "shape_bf16_d256": list(C5_PREFILL_D256)}
+    # paged_attention_simt at the c5 fp32 engine's decode: 8 slots of
+    # llama_1b's heads, fp32, 1..512 rows on 64-row pages
+    sets = [_paged_inputs(torch, 430 + i, 8, 1, 512, 65, 1, 16, 4, 128, max_pages=8,
+                          dtype=torch.float32) for i in range(2)]
+    ms = cuda_ms(torch, pd.paged_attention, sets)
+    plain_ms = cuda_ms(torch, lambda *a: pd._paged_attention_reference(*a, 1.0), sets, iters=5)
+    rows = sum(int(a[4].sum()) for a in sets) / len(sets)
+    bms, by = bound_ms(4.0 * 16 * 128 * rows, 4.0 * (2 * 8 * 16 * 128 + 2 * rows * 4 * 128)
+                       + 4.0 * 8 * 9, f32_peaks)
+    ctx["k4s"] = {"name": "paged_attention_simt", "route": "cuda", "source": SIMT_SRC,
+                  "replaces": "ray_tpu/models/paged_decode.py:93", "max_abs_err": max(errs["k4s"]),
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                  "library_ms": None, "shape": [8, 16, 4, 128, 64, 8, 1, 512]}
+    print(f"c5 paged_attention_simt fp32 8 slots: {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+          f"{bms:.5f} ms ({by}) on {ctx['card']}", flush=True)
+    del sets
+    torch.cuda.empty_cache()
+
+
+def _c5_configs():
+    """llama_1b's width at C5_LAYERS layers in the shapes and dtypes fault C5
+    was about (dataclasses.replace: the preset already passes num_kv_heads)."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    base = dataclasses.replace(LlamaConfig.llama_1b(max_seq_len=512), num_layers=C5_LAYERS)
+    return {"mha_bf16": dataclasses.replace(base, num_kv_heads=16),
+            "group8_bf16": dataclasses.replace(base, num_kv_heads=2),
+            "d256_bf16": dataclasses.replace(base, num_heads=8, num_kv_heads=2, head_dim=256),
+            "group4_fp32": dataclasses.replace(base, dtype=torch.float32)}
+
+
+def _c5_serve(ctx):
+    """LLMEngine answers 8 greedy requests for each _c5_configs entry: every
+    prefill program launches the forward kernel and every decode tick the
+    decode kernel once a layer (the tensor-core kernels in bf16 at D128, the
+    SIMT forward at D256 and in fp32, the SIMT decode in fp32), no call runs
+    a plain version, and the fp32 tokens equal those of the same engine
+    through the plain versions."""
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models import paged_decode as pd
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    rng = torch.Generator().manual_seed(11)
+    bf16_counts, simt_counts = {}, {}
+    for name, cfg in _c5_configs().items():
+        params = llama_init(cfg, seed=0, device="cuda")
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+                   for n in (32, 48, 64, 80, 96, 112, 128, 40)]
+
+        def serve():
+            engine = LLMEngine(cfg, params, device="cuda", **C5_ENGINE_KW)
+            try:
+                engine.generate(prompts[0], max_tokens=2, timeout=600)  # warm-up
+                torch.cuda.synchronize()
+                s0 = engine.stats()
+                _kernels.reset_counts()
+                with ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+                    futs = [pool.submit(engine.generate, p, 16, None, 600) for p in prompts]
+                    tokens = [f.result()["tokens"] for f in futs]
+                torch.cuda.synchronize()
+                counts = dict(_kernels.launch_counts)
+                s1 = engine.stats()
+            finally:
+                engine.stop()
+            return (tokens, counts, s1["prefill_programs"] - s0["prefill_programs"],
+                    s1["decode_steps"] - s0["decode_steps"])
+
+        tokens, counts, programs, ticks = serve()
+        fp32 = cfg.dtype == torch.float32
+        fwd = "flash_fwd_simt" if fp32 or cfg.head_dim_ == 256 else "flash_fwd"
+        dec = "paged_attention_simt" if fp32 else "paged_attention"
+        want = {fwd: C5_LAYERS * programs, dec: C5_LAYERS * ticks}
+        require_no_plain(counts, f"c5 serve {name}")
+        require(counts == want, f"c5 serve {name} launched {counts}, expected {want}")
+        require(all(len(t) == 16 and all(0 <= x < cfg.vocab_size for x in t) for t in tokens),
+                f"c5 serve {name}: a request returned wrong tokens")
+        line = (f"c5 serve {name} (nh {cfg.num_heads}, n_kv {cfg.num_kv_heads}, D "
+                f"{cfg.head_dim_}, {str(cfg.dtype)[6:]}, {C5_LAYERS} layers): 8 requests x 16 "
+                f"tokens, {programs} prefill programs, {ticks} decode ticks, launches {counts}")
+        if fp32:
+            _kernels.reset_counts()
+            with mock.patch.object(ta, "flash_attention",
+                                   lambda q, k, v, causal=True, scale=None:
+                                   ta.reference_attention(q, k, v, causal, scale)), \
+                    mock.patch.object(pd, "paged_attention",
+                                      lambda *a: pd._paged_attention_reference(*a, 1.0)):
+                plain_tokens = serve()[0]
+            require_no_launches(_kernels.launch_counts, "c5 serve plain")
+            same = sum(a == b for a, b in zip(tokens, plain_tokens))
+            line += f"; greedy tokens equal to the plain path's in {same} of 8 requests"
+            require(same == len(tokens), f"c5 serve {name}: tokens differ from the plain path")
+        print(line, flush=True)
+        for n, c in counts.items():
+            target = simt_counts if n.endswith("_simt") else bf16_counts
+            target[n] = target.get(n, 0) + c
+        ctx["c5"][f"serve_{name}"] = {"prefill_programs": programs, "decode_ticks": ticks,
+                                      "launches": counts}
+        del params
+        torch.cuda.empty_cache()
+    ctx["c5_serve_launches"], ctx["c5_bf16_launches"] = simt_counts, bf16_counts
+
+
+def _c5_train(ctx):
+    """fp32 training of llama_1b's width at C5_LAYERS layers (save_attn, B2
+    S512) through the SIMT forward with lse, dQ and dK/dV, held against the
+    same work through the plain versions (flash_attention_lse and flash_bwd
+    patched to their references), each from the seed-0 state: the first
+    step's gradients, leaf by leaf, within C5_GRAD_RTOL in relative norm;
+    then 3 train steps at a nonzero learning rate from the first update
+    (warmup_steps=0), each loss within C5_LOSS_RTOL of the plain run's. Each
+    kernel step launches each SIMT kernel once a layer; no call runs a
+    plain version, and the plain run launches nothing."""
+    import contextlib
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models.llama import llama_loss
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.train.step import (default_optimizer, make_train_state_factory,
+                                          make_train_step)
+
+    cfg = dataclasses.replace(_c5_configs()["group4_fp32"], remat="save_attn")
+    opt = default_optimizer(warmup_steps=0, total_steps=100)
+    rng = np.random.default_rng(3)
+    b, s = C5_TRAIN_ATTN[0], C5_TRAIN_ATTN[1]
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+    step = make_train_step(cfg, opt)
+    factory = make_train_state_factory(cfg, opt)
+    want = {"flash_fwd_lse_simt": C5_LAYERS, "flash_bwd_dq_simt": C5_LAYERS,
+            "flash_bwd_dkv_simt": C5_LAYERS}
+
+    def run(plain: bool):
+        """(names, first-step gradients, 3 losses, launches of the 3 steps,
+        seconds of the 3 steps) from the seed-0 state."""
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(mock.patch.object(ta, "flash_attention_lse",
+                                                      ta.reference_attention_lse))
+                stack.enter_context(mock.patch.object(ta, "flash_bwd", ta.flash_bwd_reference))
+            state = factory(seed=0, device="cuda")
+            names, leaves = grad_leaves(state.params)
+            _kernels.reset_counts()
+            with torch.enable_grad():
+                loss = llama_loss(state.params, tokens.long(), targets.long(), cfg)
+                grads = [g.detach() for g in torch.autograd.grad(loss, leaves)]
+            require(dict(_kernels.launch_counts) == ({} if plain else want),
+                    f"c5 train gradients ({'plain' if plain else 'kernels'}) launched "
+                    f"{dict(_kernels.launch_counts)}")
+            del loss, leaves
+            losses = []
+            _kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(3):
+                before = dict(_kernels.launch_counts)
+                state, metrics = step(state, tokens, targets)
+                losses.append(metrics["loss"].item())
+                counts = {n: c - before.get(n, 0) for n, c in _kernels.launch_counts.items()
+                          if c != before.get(n, 0)}
+                require(math.isfinite(losses[-1]), f"c5 train step {i}: non-finite loss")
+                require(counts == ({} if plain else want),
+                        f"c5 train step {i} ({'plain' if plain else 'kernels'}) launched "
+                        f"{counts}, expected {({} if plain else want)}")
+            dt = time.perf_counter() - t0
+            launches = dict(_kernels.launch_counts)
+        del state
+        return names, grads, losses, launches, dt
+
+    _, grads_p, plain_losses, _, plain_dt = run(plain=True)
+    torch.cuda.empty_cache()
+    names, grads_k, losses, launches, dt = run(plain=False)
+    require_no_plain(launches, "c5 train")
+    worst, worst_name = 0.0, None
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        require(bool(torch.isfinite(gk).all()), f"c5 train: non-finite gradient {name}")
+        rel = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    del grads_k, grads_p
+    rels = [abs(a - p) / abs(p) for a, p in zip(losses, plain_losses)]
+    print(f"c5 train fp32 llama_1b width, {C5_LAYERS} layers, B{b} S{s}, save_attn, lr "
+          f"{opt.schedule(0)} from the first update: first-step gradients, worst leaf "
+          f"{worst_name} at relative norm {worst:.3e} (tol {C5_GRAD_RTOL}); losses {losses}, "
+          f"plain {plain_losses}, relative {[f'{r:.3e}' for r in rels]} (tol {C5_LOSS_RTOL}); "
+          f"{dt / 3 * 1e3:.1f} ms a step (plain {plain_dt / 3 * 1e3:.1f}); launches "
+          f"{launches}", flush=True)
+    require(worst <= C5_GRAD_RTOL, f"c5 train gradient {worst_name} disagrees with the plain "
+            f"path: {worst}")
+    require(max(rels) <= C5_LOSS_RTOL, f"c5 train losses disagree with the plain path: {rels}")
+    require(losses[1] != losses[0] and plain_losses[1] != plain_losses[0],
+            "c5 train: the first update did not move the loss")
+    ctx["c5"]["train"] = {"losses": losses, "plain_losses": plain_losses, "rel": rels,
+                          "grad_rel_norm": worst, "grad_worst_leaf": worst_name,
+                          "step_ms": dt / 3 * 1e3, "plain_step_ms": plain_dt / 3 * 1e3,
+                          "launches": launches}
+    ctx["c5_train_launches"] = launches
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# data: ray_tpu_torch.data feeding ViT-L/16 on the card
+# --------------------------------------------------------------------------- #
+DATA_IMAGES, DATA_STEPS, DATA_BATCH = 512, 20, 32
+
+
+def phase_data(ctx):
+    """512 seeded 224 px PNGs through read_images, map_batches(normalize),
+    streaming_split(1) and iter_torch_batches(batch_size=32) into 20 ViT-L/16
+    train steps (ray_tpu_torch.bench_data_train); every step launches K1',
+    K2 and K3 once a layer and no plain version; the first 3 losses are
+    bit-equal to the same batches fed to the step directly; then one
+    2-worker GpuTrainer(datasets=...) run on CPU workers over the same
+    pipeline, counting rows."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.bench_data_train import data_train, image_pipeline, write_corpus
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.train.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.step import adamw
+    from ray_tpu_torch.train.trainer import GpuTrainer
+
+    torch.cuda.empty_cache()
+    cfg = tv.ViTConfig.vit_l(image_size=224)
+    L = cfg.num_layers
+    corpus = tempfile.mkdtemp(prefix="chip_smoke_images_")
+    try:
+        t0 = time.perf_counter()
+        write_corpus(corpus, DATA_IMAGES, 224)
+        corpus_s = time.perf_counter() - t0
+        _kernels.reset_counts()
+        res, extras = data_train(DATA_IMAGES, DATA_STEPS, DATA_BATCH, keep=3, corpus=corpus)
+        launches = dict(_kernels.launch_counts)
+        require_no_plain(launches, "data")
+        want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        for i, c in enumerate(extras["launches"]):
+            require(c == want, f"data step {i} launched {c}, expected {want}")
+        losses = [loss.item() for loss in extras["losses"]]
+        require(len(losses) == DATA_STEPS and all(math.isfinite(x) for x in losses),
+                f"data: {len(losses)} steps, losses {losses}")
+        print("data per-op pipeline stats (the last epoch's execution):\n"
+              + extras["stats_table"], flush=True)
+        print(f"data on {ctx['card']} ({ctx['smi']}): {DATA_IMAGES} PNGs (written in "
+              f"{corpus_s:.2f} s) -> read_images -> map_batches(normalize) -> "
+              f"streaming_split(1) -> iter_torch_batches(batch_size={DATA_BATCH}) -> ViT-L/16 "
+              f"({cfg.num_params} params) for {res['steps']} steps: {res['value']} images/s, "
+              f"busy fraction {res['vs_baseline']}, input-starved fraction "
+              f"{res['input_starved_fraction']}, peak in-flight blocks "
+              f"{res['peak_in_flight_blocks']}; losses {losses}", flush=True)
+
+        # the first 3 losses, bit for bit, from the same batches fed directly
+        step, init = tv.make_vit_train_step(cfg, adamw(1e-3))
+        params, opt_state = init(seed=0, device="cuda")
+        warm, *timed = extras["batches"]
+        params, opt_state, _ = step(params, opt_state, warm["image"], warm["label"])
+        direct = []
+        for b in timed:
+            params, opt_state, loss = step(params, opt_state, b["image"], b["label"])
+            direct.append(loss)
+        equal = [torch.equal(a, b) for a, b in zip(extras["losses"], direct)]
+        print(f"data: the first {len(direct)} losses through iter_torch_batches "
+              f"{[x.item() for x in extras['losses'][:3]]}, fed directly "
+              f"{[x.item() for x in direct]}: bit-equal {equal}", flush=True)
+        require(len(equal) == 3 and all(equal), "data: losses differ from direct feeding")
+        del params, opt_state, extras, direct, timed, warm
+        torch.cuda.empty_cache()
+
+        # one GpuTrainer run, 2 CPU workers, each reading its streaming_split shard
+        def train_fn(config):
+            from ray_tpu_torch.train import session
+
+            it = session.get_dataset_shard("train")
+            session.report({"rows": sum(len(b["label"]) for b in it.iter_batches(batch_size=32))})
+
+        ray_tpu_torch.init(num_cpus=8)
+        try:
+            t0 = time.perf_counter()
+            result = GpuTrainer(
+                train_fn, scaling_config=ScalingConfig(num_workers=2, cpus_per_worker=1),
+                run_config=RunConfig(name="data_train", storage_path=os.path.join(corpus, "runs")),
+                datasets={"train": image_pipeline(corpus, 224, cfg.num_classes)}).fit()
+            trainer_s = time.perf_counter() - t0
+        finally:
+            ray_tpu_torch.shutdown()
+        rows = (result.metrics or {}).get("rows", 0)
+        print(f"data: GpuTrainer, 2 CPU workers, datasets={{'train': ...}}: error "
+              f"{result.error!r}, worker 0 read {rows} rows of {DATA_IMAGES} in "
+              f"{trainer_s:.2f} s", flush=True)
+        require(result.error is None and 0 < rows <= DATA_IMAGES,
+                f"data: GpuTrainer run failed or read {rows} rows")
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+    ctx["data"] = dict(res, losses=losses, corpus_s=corpus_s, trainer_rows=rows,
+                       trainer_s=trainer_s)
+    ctx["data_launches"] = launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -2114,7 +2732,12 @@ def main() -> int:
 
     # launches: each kernel's count from the run of the path it lies on
     runs = {"k1": ctx["launches"], "k1l": ctx["train_launches"], "k2": ctx["train_launches"],
-            "k3": ctx["train_launches"], "k4": ctx["launches"]}
+            "k3": ctx["train_launches"], "k4": ctx["launches"],
+            # the CUDA-core kernels, from the c5 phase's fp32 and D256 engines
+            # and its fp32 train steps
+            "k1s": ctx["c5_serve_launches"], "k1ls": ctx["c5_train_launches"],
+            "k2s": ctx["c5_train_launches"], "k3s": ctx["c5_train_launches"],
+            "k4s": ctx["c5_serve_launches"]}
     kernels = []
     for key, run in runs.items():
         entry = dict(ctx[key], launches=run.get(ctx[key]["name"], 0))
@@ -2124,8 +2747,12 @@ def main() -> int:
             entry["launches_mesh"] = ctx["mesh_launches"].get(entry["name"], 0)
             # and in the runtime phase's first GpuTrainer run (8 llama_1b steps)
             entry["launches_runtime"] = ctx["runtime_launches"].get(entry["name"], 0)
-        else:  # K1 and K4 in the serve_app phase's 64 requests through serve
+            # and in the data phase's 21 ViT-L steps fed by iter_torch_batches
+            entry["launches_data"] = ctx["data_launches"].get(entry["name"], 0)
+        elif key in ("k1", "k4"):  # in the serve_app phase's 64 requests through serve
             entry["launches_serve_app"] = ctx["serve_app_launches"].get(entry["name"], 0)
+            # and in the c5 phase's bf16 engines (groups 1 and 8; K4 also at D256)
+            entry["launches_c5"] = ctx["c5_bf16_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -2136,7 +2763,9 @@ def main() -> int:
               "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
               "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"], "mesh": ctx["mesh"],
               "runtime": ctx["runtime"], "serve_app": ctx["serve_app"],
-              "rl_platform": ctx["rl_platform"]}
+              "rl_platform": ctx["rl_platform"], "c5": ctx["c5"],
+              "data": {k: v for k, v in ctx["data"].items() if k != "per_op_stats"},
+              "data_per_op_stats": ctx["data"].get("per_op_stats")}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,8 +1,8 @@
-"""Times of the training path's attention kernels on one card (K1', the
-forward with lse; K2, dQ; K3, dK/dV), for comparing two checkouts of this
+"""Times of the attention kernels on one card (K1', the forward with lse;
+K2, dQ; K3, dK/dV; K4, paged decode), for comparing two checkouts of this
 repository in one run on one card.
 
-    python3 ray_tpu_torch/attention_times.py [CHECKOUT ...]
+    python3 ray_tpu_torch/attention_times.py [--paged] [CHECKOUT ...]
 
 Each CHECKOUT is the root of a checkout (default: the one this file lies
 in). Each is timed in a process of its own, in the order given, so
@@ -12,10 +12,17 @@ and calls only what every checkout since the flash backward (K2, K3) has:
 ``flash_attention_lse``, ``_delta``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
 The shapes are llama_1b's training attention (B8, S2048, 16 q heads over 4,
 D128, causal) and ViT-L/16's (B32, S196, 16 heads over 16, D64, not
-causal); a shape a checkout's kernels refuse is reported as null. Each line
-of output is one checkout's JSON: ms a call (mean of 20 calls between CUDA
-events, inputs cycling over two copies larger than the L2), per kernel and
-shape. The card's name and power limit come first.
+causal); a shape a checkout's kernels refuse is reported as null. K4
+(``models.paged_decode.paged_attention``, in every checkout) is timed at
+the serving table: 64 slots of 1..512 rows on 64-row pages, a 32-page
+table, 16 q heads over 4 of D128, bf16. Each line of output is one
+checkout's JSON: ms a call (mean of 20 calls between CUDA events, inputs
+cycling over copies larger than the L2), per kernel and shape; for K4 also
+``device_ms`` (the same 20 calls captured in a CUDA graph and replayed: the
+device alone) and ``host_us`` (host clock over 200 wrapper calls with no
+synchronisation in between; ``ROUNDS`` rounds, each listed). ``--paged``
+times K4 alone (and builds only its source). The card's name and power
+limit come first.
 """
 
 from __future__ import annotations
@@ -24,9 +31,11 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 SHAPES = {"llama_1b": (8, 2048, 2048, 16, 4, 128, True),
           "vit_l": (32, 196, 196, 16, 16, 64, False)}
+ROUNDS = 5  # rounds of 200 K4 wrapper calls timed on the host clock
 
 
 def _ms(torch, fn, sets, iters=20, warmup=3):
@@ -42,16 +51,73 @@ def _ms(torch, fn, sets, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def time_checkout(root: str) -> dict:
-    """Times of K1', K2 and K3 from the checkout at ``root`` (run in a fresh
-    process: it imports that checkout's package)."""
+def _graph_ms(torch, fn, sets, iters=20, replays=5):
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def _paged_set(torch, seed, B=64, lo=1, hi=512, total_pages=513, trash_slots=4, nh=16, nkv=4,
+               D=128, ps=64, max_pages=32):
+    """K4's inputs at the serving table: B slots of lo..hi rows on random
+    pages (page 0 the trash page; the first ``trash_slots`` slots hold one
+    row and an all-zero table row, as inactive slots do); q pre-scaled."""
+    g = torch.Generator().manual_seed(seed)
+    slot_pages = (total_pages - 1) // B
+    lengths = torch.randint(lo, hi + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[:trash_slots] = 1
+    perm = torch.randperm(total_pages - 1, generator=g) + 1
+    table = torch.zeros((B, max_pages), dtype=torch.int32)
+    for s in range(trash_slots, B):
+        n = -(-int(lengths[s]) // ps)
+        table[s, :n] = perm[s * slot_pages: s * slot_pages + n]
+    gd = torch.Generator(device="cuda").manual_seed(seed)
+    kp, vp = (torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    q = (torch.randn((B, nh, D), generator=gd, device="cuda") * D ** -0.5).to(torch.bfloat16)
+    return q, kp, vp, table.cuda(), lengths.cuda()
+
+
+def time_paged(torch, pd) -> dict:
+    """K4's event-timed ms, graph-timed device_ms and host_us a wrapper call
+    at the serving table."""
+    sets = [_paged_set(torch, 40 + i) for i in range(4)]
+    result = {"ms": _ms(torch, pd.paged_attention, sets),
+              "device_ms": _graph_ms(torch, pd.paged_attention, sets), "host_us": []}
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(200):
+            pd.paged_attention(*sets[i % len(sets)])
+        result["host_us"].append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    return result
+
+
+def time_checkout(root: str, paged_only: bool = False) -> dict:
+    """Times of K1', K2, K3 and K4 (only K4 with ``paged_only``) from the
+    checkout at ``root`` (run in a fresh process: it imports that
+    checkout's package)."""
     sys.path.insert(0, root)
     import torch
 
+    from ray_tpu_torch.models import paged_decode as pd
     from ray_tpu_torch.ops import attention as ta
 
     result = {"checkout": root}
-    for name, (b, sq, skv, hq, hkv, d, causal) in SHAPES.items():
+    for name, (b, sq, skv, hq, hkv, d, causal) in ({} if paged_only else SHAPES).items():
         scale = d ** -0.5
         g = torch.Generator(device="cuda").manual_seed(0)
         sets = []
@@ -74,19 +140,24 @@ def time_checkout(root: str) -> dict:
         result[name] = times
         del sets
         torch.cuda.empty_cache()
+    result["paged_attention"] = time_paged(torch, pd)
     return result
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print(json.dumps(time_checkout(os.path.abspath(sys.argv[2]))), flush=True)
+    args = sys.argv[1:]
+    paged = args[:1] == ["--paged"]
+    args = args[1:] if paged else args
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps(time_checkout(os.path.abspath(args[1]), paged)), flush=True)
         return 0
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    for root in sys.argv[1:] or [here]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True)
+    for root in args or [here]:
+        subprocess.run([sys.executable, os.path.abspath(__file__)] + ["--paged"] * paged
+                       + ["--one", root], check=True)
     return 0
 
 

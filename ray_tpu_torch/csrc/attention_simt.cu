@@ -1,0 +1,571 @@
+// Attention on the CUDA cores for Hopper (sm_90a), in fp32 and bf16 storage:
+// the flash forward (with or without lse), its two backward kernels (dQ, and
+// dK/dV summed over the GQA group), and paged decode.
+//
+// Replaces, for the shapes the tensor-core kernels do not take:
+//   ray_tpu/ops/attention.py:_flash_fwd_kernel (:71), with and without lse;
+//   ray_tpu/ops/attention.py:_flash_bwd_dq_kernel (:182);
+//   ray_tpu/ops/attention.py:_flash_bwd_dkv_kernel (:224);
+//   the Pallas library's paged_attention as called by
+//   ray_tpu/models/paged_decode.py:_paged_attention (:93).
+// The reference runs its kernels in any dtype. The bf16 kernels of
+// flash_fwd.cu and flash_bwd.cu (wgmma) tile head dims 64 and 128, and
+// paged_attention.cu (mma.sync) bf16 at 128 and 256. This file takes the rest
+// of what the port's dispatch sends to a kernel: fp32 at head dims 64, 128 and
+// 256 (all four kernels), and bf16 at head dim 256 (the three flash kernels).
+//
+// Precision. fp32 attention is computed with full fp32 products (FFMA on the
+// CUDA cores), not TF32 on the tensor cores: the plain version on the card is
+// full fp32 (torch's float32 matmuls do not use TF32 by default), the JAX
+// tests hold flash against its reference in fp32 at 2e-5, and TF32 keeps
+// about three decimal digits. Sums and exponentials are fp32 in both storage
+// types (expf, logf: no approximate intrinsics). The reference's rounding
+// points are kept: p is rounded to the value dtype before P.V and P^T.dO, and
+// ds to the q/k dtype before dS.K and dS^T.Q (identities in fp32).
+//
+// Bound: at the shapes these kernels see, the products are operations on the
+// CUDA cores (the H100's fp32 rate, 67 TFLOP/s, is 1/15 of bf16 on the tensor
+// cores), so they are bound by operations. The design is the simple tiled
+// one, right first: a block of 128 threads owns BR = 16 rows (q rows in the
+// forward and dQ, kv rows in dK/dV); it streams the other operand in tiles of
+// BC = 64 rows through shared memory, converted to fp32 on load (row stride
+// D + 1 floats, so the 8 threads of a row read 8 different banks). Thread
+// (r, c) = (tid / 8, tid % 8) computes the scores of its row r against
+// streamed rows c + 8 j, j < 8; the 8 threads of a row are 8 lanes of one warp
+// and reduce the row's max and sum by shuffles; the row's output columns are
+// c + 8 jj. Causal tiles past the diagonal are skipped; ragged edges are
+// masked (causal bottom-right: query row i sees key j iff j <= i + Skv - Sq).
+// dK/dV loops over the group's q heads inside the block and sums them in
+// registers, in head order: no atomics, so every kernel here is bitwise
+// repeatable.
+//
+// Paged decode: one block per (q head, slot), 128 threads; the slot's rows in
+// tiles of 64, each K/V row found through the block table; two threads a row
+// for Q.K, block-wide max and sum, each thread owns D / 128 (at least one)
+// output columns of P.V. It reads a kv head's rows once per q head.
+//
+// Layouts as in flash_fwd.cu, flash_bwd.cu and paged_attention.cu: q/out/dq
+// [B, Sq, Hq, D], k/v/dk/dv [B, Skv, Hkv, D], lse/delta [B, Hq, Sq] fp32;
+// pools [n_kv, total_pages, page_size, D], table [B, max_pages] int32, lengths
+// [B] int32, q/out [B, nh, D]. All contiguous.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int NT = 128;        // threads a block
+constexpr int BR = 16;         // rows a block owns
+constexpr int BC = 64;         // rows of the streamed operand a tile
+constexpr int TPR = NT / BR;   // threads a row: 8 lanes of one warp
+constexpr int CPT = BC / TPR;  // streamed rows a thread scores: 8
+constexpr int PLD = BC + 1;    // row stride of the p / ds tiles
+constexpr float NEG = -1e30f;
+constexpr int F32 = 0, BF16 = 1;  // the entries' dtype codes
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+// x rounded to T and back: one of the reference's rounding points
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+// Over the 8 lanes of a row (lanes 8 k .. 8 k + 7 of a warp).
+__device__ __forceinline__ float row_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+}
+__device__ __forceinline__ float row_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 1);
+}
+
+// Rows row0 .. row0 + n - 1 of a [rows, stride] matrix (columns 0 .. D - 1)
+// into dst [n][D + 1] as fp32, zeros past row_end.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, long stride, int row0, int n,
+                                          int row_end) {
+  for (int i = threadIdx.x; i < n * D; i += NT) {
+    const int r = i / D, d = i % D;
+    dst[r * (D + 1) + d] = row0 + r < row_end ? to_f(src[(long)(row0 + r) * stride + d]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot(const float* a, const float* b, int n) {
+  float s = 0.f;
+  for (int d = 0; d < n; ++d) s = fmaf(a[d], b[d], s);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// Forward: grid (ceil(Sq / BR), Hq, B).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           T* __restrict__ out, float* __restrict__ lse, T* __restrict__ out_lo, int Sq, int Skv,
+           int Hq, int Hkv, int causal, float scale) {
+  constexpr int LD = D + 1;
+  extern __shared__ float sm[];
+  float* sQ = sm;                // [BR][LD]
+  float* sK = sQ + BR * LD;      // [BC][LD]
+  float* sV = sK + BC * LD;      // [BC][LD]
+  float* sP = sV + BC * LD;      // [BR][PLD]
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int off = Skv - Sq;
+  const int q0 = blockIdx.x * BR;
+  const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
+  const int qi = q0 + r;
+  const long qs = (long)Hq * D, ks = (long)Hkv * D;
+  const T* kb = k + (long)b * Skv * ks + (long)hk * D;
+  const T* vb = v + (long)b * Skv * ks + (long)hk * D;
+  load_rows<T, D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
+  // keys any row of the tile sees
+  const int kend = causal ? min(Skv, min(q0 + BR, Sq) + off) : Skv;
+
+  float m = NEG, l = 0.f;
+  float o[D / TPR];
+#pragma unroll
+  for (int jj = 0; jj < D / TPR; ++jj) o[jj] = 0.f;
+  for (int k0 = 0; k0 < kend; k0 += BC) {
+    __syncthreads();  // the previous tile is consumed (and sQ is loaded)
+    load_rows<T, D>(sK, kb, ks, k0, BC, Skv);
+    load_rows<T, D>(sV, vb, ks, k0, BC, Skv);
+    __syncthreads();
+    float s[CPT];
+    bool seen[CPT];
+    float mx = NEG;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int kj = k0 + c + TPR * j;
+      seen[j] = kj < Skv && (!causal || kj <= qi + off);
+      s[j] = seen[j] ? dot(sQ + r * LD, sK + (c + TPR * j) * LD, D) * scale : NEG;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float m_new = fmaxf(m, row_max(mx));
+    const float alpha = expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float p = seen[j] ? expf(s[j] - m_new) : 0.f;
+      psum += p;
+      sP[r * PLD + c + TPR * j] = round_to<T>(p);  // p in the value dtype for P.V
+    }
+    l = l * alpha + row_sum(psum);
+    m = m_new;
+    __syncwarp();  // the row's p, written by its 8 lanes, read by the same 8
+#pragma unroll
+    for (int jj = 0; jj < D / TPR; ++jj) o[jj] *= alpha;
+    for (int kk = 0; kk < BC; ++kk) {
+      const float p = sP[r * PLD + kk];
+#pragma unroll
+      for (int jj = 0; jj < D / TPR; ++jj) o[jj] = fmaf(p, sV[kk * LD + c + TPR * jj], o[jj]);
+    }
+  }
+  if (qi >= Sq) return;
+  const float lsafe = fmaxf(l, 1e-30f);
+  const float inv = 1.f / lsafe;
+  const long row = ((long)b * Sq + qi) * qs + (long)h * D;
+#pragma unroll
+  for (int jj = 0; jj < D / TPR; ++jj) {
+    const float val = o[jj] * inv;
+    const T rounded = from_f<T>(val);
+    out[row + c + TPR * jj] = rounded;
+    if (out_lo != nullptr) out_lo[row + c + TPR * jj] = from_f<T>(val - to_f(rounded));
+  }
+  if (lse != nullptr && c == 0) lse[((long)b * Hq + h) * Sq + qi] = m + logf(lsafe);
+}
+
+// ---------------------------------------------------------------------------
+// dQ: grid (ceil(Sq / BR), Hq, B).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
+          int causal, float scale) {
+  constexpr int LD = D + 1;
+  extern __shared__ float sm[];
+  float* sQ = sm;                // [BR][LD]
+  float* sO = sQ + BR * LD;      // [BR][LD]: dO
+  float* sK = sO + BR * LD;      // [BC][LD]
+  float* sV = sK + BC * LD;      // [BC][LD]
+  float* sS = sV + BC * LD;      // [BR][PLD]: ds
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int off = Skv - Sq;
+  const int q0 = blockIdx.x * BR;
+  const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
+  const int qi = q0 + r;
+  const long qs = (long)Hq * D, ks = (long)Hkv * D;
+  const T* kb = k + (long)b * Skv * ks + (long)hk * D;
+  const T* vb = v + (long)b * Skv * ks + (long)hk * D;
+  load_rows<T, D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
+  load_rows<T, D>(sO, dout + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
+  const long rrow = ((long)b * Hq + h) * Sq + qi;
+  const float lse_r = qi < Sq ? lse[rrow] : 0.f;
+  const float delta_r = qi < Sq ? delta[rrow] : 0.f;
+  const int kend = causal ? min(Skv, min(q0 + BR, Sq) + off) : Skv;
+
+  float acc[D / TPR];
+#pragma unroll
+  for (int jj = 0; jj < D / TPR; ++jj) acc[jj] = 0.f;
+  for (int k0 = 0; k0 < kend; k0 += BC) {
+    __syncthreads();
+    load_rows<T, D>(sK, kb, ks, k0, BC, Skv);
+    load_rows<T, D>(sV, vb, ks, k0, BC, Skv);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int kj = k0 + c + TPR * j;
+      const bool seen = qi < Sq && kj < Skv && (!causal || kj <= qi + off);
+      float ds = 0.f;
+      if (seen) {
+        const float p = expf(dot(sQ + r * LD, sK + (c + TPR * j) * LD, D) * scale - lse_r);
+        const float dp = dot(sO + r * LD, sV + (c + TPR * j) * LD, D);
+        ds = p * (dp - delta_r) * scale;
+      }
+      sS[r * PLD + c + TPR * j] = round_to<T>(ds);  // ds in the k dtype for dS.K
+    }
+    __syncwarp();
+    for (int kk = 0; kk < BC; ++kk) {
+      const float ds = sS[r * PLD + kk];
+#pragma unroll
+      for (int jj = 0; jj < D / TPR; ++jj)
+        acc[jj] = fmaf(ds, sK[kk * LD + c + TPR * jj], acc[jj]);
+    }
+  }
+  if (qi >= Sq) return;
+  const long row = ((long)b * Sq + qi) * qs + (long)h * D;
+#pragma unroll
+  for (int jj = 0; jj < D / TPR; ++jj) dq[row + c + TPR * jj] = from_f<T>(acc[jj]);
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: grid (ceil(Skv / BR), Hkv, B); the group's q heads in order.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           const T* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Sq,
+           int Skv, int Hq, int Hkv, int causal, float scale) {
+  constexpr int LD = D + 1;
+  extern __shared__ float sm[];
+  float* sK = sm;                // [BR][LD]
+  float* sV = sK + BR * LD;      // [BR][LD]
+  float* sQ = sV + BR * LD;      // [BC][LD]
+  float* sO = sQ + BC * LD;      // [BC][LD]: dO
+  float* sP = sO + BC * LD;      // [BR][PLD]
+  float* sS = sP + BR * PLD;     // [BR][PLD]
+  float* sL = sS + BR * PLD;     // [BC]: lse
+  float* sD = sL + BC;           // [BC]: delta
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int off = Skv - Sq;
+  const int k0 = blockIdx.x * BR;
+  const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
+  const int kr = k0 + r;
+  const long qs = (long)Hq * D, ks = (long)Hkv * D;
+  load_rows<T, D>(sK, k + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
+  load_rows<T, D>(sV, v + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
+  // the first q row that sees any key of the tile
+  const int qstart = causal ? max(0, k0 - off) : 0;
+
+  float gk[D / TPR], gv[D / TPR];
+#pragma unroll
+  for (int jj = 0; jj < D / TPR; ++jj) gk[jj] = gv[jj] = 0.f;
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    const T* qb = q + (long)b * Sq * qs + (long)h * D;
+    const T* ob = dout + (long)b * Sq * qs + (long)h * D;
+    const float* lb = lse + ((long)b * Hq + h) * Sq;
+    const float* db = delta + ((long)b * Hq + h) * Sq;
+    for (int q0 = qstart; q0 < Sq; q0 += BC) {
+      __syncthreads();
+      load_rows<T, D>(sQ, qb, qs, q0, BC, Sq);
+      load_rows<T, D>(sO, ob, qs, q0, BC, Sq);
+      for (int i = threadIdx.x; i < BC; i += NT) {
+        sL[i] = q0 + i < Sq ? lb[q0 + i] : 0.f;
+        sD[i] = q0 + i < Sq ? db[q0 + i] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int t = c + TPR * j;
+        const int qi = q0 + t;
+        const bool seen = kr < Skv && qi < Sq && (!causal || kr <= qi + off);
+        float p = 0.f, ds = 0.f;
+        if (seen) {
+          p = expf(dot(sQ + t * LD, sK + r * LD, D) * scale - sL[t]);
+          const float dp = dot(sO + t * LD, sV + r * LD, D);
+          ds = p * (dp - sD[t]) * scale;
+        }
+        sP[r * PLD + t] = round_to<T>(p);   // p in the dO dtype for P^T.dO
+        sS[r * PLD + t] = round_to<T>(ds);  // ds in the q dtype for dS^T.Q
+      }
+      __syncwarp();
+      for (int t = 0; t < BC; ++t) {
+        const float p = sP[r * PLD + t], ds = sS[r * PLD + t];
+#pragma unroll
+        for (int jj = 0; jj < D / TPR; ++jj) {
+          gv[jj] = fmaf(p, sO[t * LD + c + TPR * jj], gv[jj]);
+          gk[jj] = fmaf(ds, sQ[t * LD + c + TPR * jj], gk[jj]);
+        }
+      }
+    }
+  }
+  if (kr >= Skv) return;
+  const long row = ((long)b * Skv + kr) * ks + (long)hk * D;
+#pragma unroll
+  for (int jj = 0; jj < D / TPR; ++jj) {
+    dk[row + c + TPR * jj] = from_f<T>(gk[jj]);
+    dv[row + c + TPR * jj] = from_f<T>(gv[jj]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Paged decode: grid (nh, B). q arrives pre-scaled.
+constexpr int PT = 64;  // a slot's rows a tile
+
+__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, w) : v + w;
+  }
+  __syncthreads();  // red is free
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < NT / 32; ++w) v = is_max ? fmaxf(v, red[w]) : v + red[w];
+  return v;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+             const T* __restrict__ v_pool, const int* __restrict__ table,
+             const int* __restrict__ lengths, T* __restrict__ out, int nh, int n_kv,
+             int total_pages, int page_size, int max_pages) {
+  constexpr int LD = D + 1;
+  constexpr int OC = (D + NT - 1) / NT;  // output columns a thread
+  extern __shared__ float sm[];
+  float* sq = sm;              // [D]
+  float* sK = sq + D;          // [PT][LD]
+  float* sV = sK + PT * LD;    // [PT][LD]
+  float* sp = sV + PT * LD;    // [PT]
+  float* red = sp + PT;        // [NT / 32]
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int g = h / (nh / n_kv);
+  const int tid = threadIdx.x;
+  const int len = max(0, min(lengths[b], max_pages * page_size));
+  const long orow = ((long)b * nh + h) * D;
+  if (len == 0) {  // lengths[b] <= 0: zeros, as paged_attention.cu writes
+    for (int d = tid; d < D; d += NT) out[orow + d] = from_f<T>(0.f);
+    return;
+  }
+  for (int d = tid; d < D; d += NT) sq[d] = to_f(q[orow + d]);
+  const int* tb = table + (long)b * max_pages;
+  const long pool_head = (long)g * total_pages * page_size;
+
+  float m = NEG, l = 0.f, o[OC];
+#pragma unroll
+  for (int i = 0; i < OC; ++i) o[i] = 0.f;
+  const int kr = tid / 2, half = tid % 2;  // Q.K: two threads a row, half of D each
+  for (int t0 = 0; t0 < len; t0 += PT) {
+    __syncthreads();  // the previous tile is consumed (and sq is loaded)
+    for (int i = tid; i < PT * D; i += NT) {
+      const int rr = i / D, d = i % D, t = t0 + rr;
+      float kv = 0.f, vv = 0.f;
+      if (t < len) {
+        const int page = min(max(tb[t / page_size], 0), total_pages - 1);
+        const long at = (pool_head + (long)page * page_size + t % page_size) * D + d;
+        kv = to_f(k_pool[at]);
+        vv = to_f(v_pool[at]);
+      }
+      sK[rr * LD + d] = kv;
+      sV[rr * LD + d] = vv;
+    }
+    __syncthreads();
+    float s = dot(sq + half * (D / 2), sK + kr * LD + half * (D / 2), D / 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    const bool seen = t0 + kr < len;
+    if (!seen) s = NEG;
+    const float m_new = fmaxf(m, block_reduce(s, red, true));
+    const float alpha = expf(m - m_new);
+    const float p = seen ? expf(s - m_new) : 0.f;
+    if (half == 0) sp[kr] = round_to<T>(p);  // p in the pool's dtype for P.V
+    l = l * alpha + block_reduce(half == 0 ? p : 0.f, red, false);
+    m = m_new;
+    __syncthreads();  // sp is written
+#pragma unroll
+    for (int i = 0; i < OC; ++i) {
+      const int d = tid + NT * i;
+      if (d < D) {
+        float acc = o[i] * alpha;
+        for (int t = 0; t < PT; ++t) acc = fmaf(sp[t], sV[t * LD + d], acc);
+        o[i] = acc;
+      }
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < OC; ++i) {
+    const int d = tid + NT * i;
+    if (d < D) out[orow + d] = from_f<T>(o[i] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int D>
+int fwd_launch(const void* q, const void* k, const void* v, void* out, void* lse, void* out_lo,
+               int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
+               cudaStream_t st) {
+  const size_t bytes = sizeof(float) * ((BR + 2 * BC) * (D + 1) + BR * PLD);
+  cudaError_t err = allow_smem(fwd_kernel<T, D>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  fwd_kernel<T, D><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<T*>(out_lo), Sq, Skv, Hq, Hkv,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dq_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+              float scale, cudaStream_t st) {
+  const size_t bytes = sizeof(float) * ((2 * BR + 2 * BC) * (D + 1) + BR * PLD);
+  cudaError_t err = allow_smem(dq_kernel<T, D>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dq_kernel<T, D><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Skv, Hq, Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dkv_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
+               int causal, float scale, cudaStream_t st) {
+  const size_t bytes = sizeof(float) * ((2 * BR + 2 * BC) * (D + 1) + 2 * BR * PLD + 2 * BC);
+  cudaError_t err = allow_smem(dkv_kernel<T, D>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<T, D><<<dim3((Skv + BR - 1) / BR, Hkv, B), NT, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq,
+      Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int paged_launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
+                 const void* lengths, void* out, int B, int nh, int n_kv, int total_pages,
+                 int page_size, int max_pages, cudaStream_t st) {
+  const size_t bytes = sizeof(float) * (D + 2 * PT * (D + 1) + PT + NT / 32);
+  cudaError_t err = allow_smem(paged_kernel<T, D>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  paged_kernel<T, D><<<dim3(nh, B), NT, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      static_cast<const int*>(table), static_cast<const int*>(lengths), static_cast<T*>(out), nh,
+      n_kv, total_pages, page_size, max_pages);
+  return (int)cudaGetLastError();
+}
+
+int check_shape(int B, int Sq, int Skv, int Hq, int Hkv) {
+  if (Skv <= 0 || Hkv <= 0 || Hq <= 0 || B < 0 || Sq < 0 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+}  // namespace
+
+// The instances: fp32 at D 64, 128 and 256; bf16 at D 256 (the flash kernels
+// only; paged decode is fp32 only). Any other (dtype, D) returns
+// cudaErrorInvalidValue.
+#define SIMT_DISPATCH(CALL)                                      \
+  if (dtype == F32 && D == 64) return CALL(float, 64);           \
+  if (dtype == F32 && D == 128) return CALL(float, 128);         \
+  if (dtype == F32 && D == 256) return CALL(float, 256);         \
+  if (dtype == BF16 && D == 256 && flash) return CALL(bf16, 256); \
+  return (int)cudaErrorInvalidValue;
+
+extern "C" int simt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                              void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                              int causal, float scale, int dtype, void* stream) {
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
+  if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
+  if ((lse == nullptr) != (out_lo == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool flash = true;
+#define FWD(T, DIM) \
+  fwd_launch<T, DIM>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st)
+  SIMT_DISPATCH(FWD)
+#undef FWD
+}
+
+extern "C" int simt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dq, int B, int Sq,
+                                 int Skv, int Hq, int Hkv, int D, int causal, float scale,
+                                 int dtype, void* stream) {
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
+  if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool flash = true;
+#define DQ(T, DIM) \
+  dq_launch<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st)
+  SIMT_DISPATCH(DQ)
+#undef DQ
+}
+
+extern "C" int simt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* delta, void* dk, void* dv, int B,
+                                  int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                                  float scale, int dtype, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool flash = true;
+#define DKV(T, DIM) \
+  dkv_launch<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, scale, st)
+  SIMT_DISPATCH(DKV)
+#undef DKV
+}
+
+extern "C" int simt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
+                                    const void* table, const void* lengths, void* out, int B,
+                                    int nh, int n_kv, int D, int total_pages, int page_size,
+                                    int max_pages, int dtype, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  if (n_kv <= 0 || nh % n_kv != 0 || page_size <= 0 || max_pages <= 0 || total_pages <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool flash = false;
+#define PAGED(T, DIM)                                                                      \
+  paged_launch<T, DIM>(q, k_pool, v_pool, table, lengths, out, B, nh, n_kv, total_pages, \
+                       page_size, max_pages, st)
+  SIMT_DISPATCH(PAGED)
+#undef PAGED
+}
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -18,21 +18,25 @@
 //   takes chunks z, z + n_splits, ... up to lengths[b]. The wrapper picks
 //   n_splits so that the grid fills the card (more splits for fewer slots),
 //   never more than the table's chunks. A block past its slot's length exits
-//   at once. One block serves all 4 q heads of its kv head, so GQA reads each
-//   K/V row once.
+//   at once. One block serves up to PROWS = 8 q heads of its kv head (the top
+//   half of the m16 A operand), so a group of up to 8 reads each K/V row once;
+//   a larger group (16, 32) goes in passes of 8 heads, one pass a block along
+//   the grid's y axis, each reading the slot's rows again (mostly from L2).
 // - Loads. Lane i of warp 0 reads the block table entry of the chunk's box i
 //   (a box is box_rows_of(page_size) rows of one page: the largest power of two
 //   that divides the page size, at most 128) and starts that box's K and
 //   V by TMA into shared memory, each on its own mbarrier; the whole chunk
-//   (64 KB) is in flight at once, so the longest chain is one round of loads.
+//   (64 KB at D128, 128 KB at D256) is in flight at once, so the longest
+//   chain is one round of loads.
 //   Boxes past the slot's length (rounded up to 16 rows) are never loaded.
 //   The pool is a 4-D tensor map [n_kv, total_pages * page_size, 1, D] with
 //   128-byte swizzle (the slab layout of sm90.cuh); a box is addressed by its
 //   pool row page * page_size + offset.
 // - Products on the tensor cores (mma.sync m16n8k16, bf16, fp32 accumulate).
-//   Each of the 4 warps owns 32 rows of the chunk. S = Q.K^T takes the 4 q
-//   heads as rows 0-3 of the A operand (kept in registers for the whole
-//   block) and K from the swizzled tile by ldmatrix. The online softmax runs
+//   Each of the 4 warps owns 32 rows of the chunk. S = Q.K^T takes the pass's
+//   q heads as rows 0-7 of the A operand (rows past the group's end are zero;
+//   kept in registers for the whole block) and K from the swizzled tile by
+//   ldmatrix. The online softmax runs
 //   in the log2 domain (exp2 by ex2.approx, log2(e) on the scores), two quad
 //   shuffles per row reduction; P packs in place into the bf16 A fragment of
 //   O += P.V, whose V operand comes by ldmatrix.trans. Rows past the length
@@ -50,31 +54,38 @@
 // Layout: q/out [B, nh, D] bf16 contiguous; pools [n_kv, total_pages, page_size,
 // D] bf16 contiguous (one layer); table [B, max_pages] int32; lengths [B] int32;
 // partials fp32: acc [B, nh, n_splits, D], then (m, l) [B, nh, n_splits, 2].
-// D 128, 4 q heads per kv head, page_size a multiple of 8.
-// Split kernel grid (n_splits, n_kv, B), 128 threads; merge grid (n_kv, B).
+// D 128 or 256 (one instance each; at D256 a chunk's K and V tiles take 128 KB
+// of shared memory), any group nh % n_kv == 0 (a run-time value), page_size a
+// multiple of 8. Split kernel grid (n_splits, n_kv * passes, B), 128 threads;
+// merge grid (n_kv * passes, B), where passes = ceil(group / PROWS).
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int D = 128;
-constexpr int REP = 4;          // q heads per kv head
+constexpr int PROWS = 8;        // q heads a block serves: rows 0-7 of the A operand
 constexpr int CHUNK = 128;      // rows a block loads at once
 constexpr int NWARPS = 4;       // each owns CHUNK / NWARPS rows of a chunk
 constexpr int WROWS = CHUNK / NWARPS;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_BOXES = CHUNK / 8;
 constexpr uint32_t SLAB = CHUNK * ROW;            // one 64-column slab of a chunk
-constexpr uint32_t TILE = 2 * SLAB;               // a chunk of K (or V): 32 KB
-constexpr uint32_t BAR_OFF = 2 * TILE;            // K tile, V tile, then barriers
-constexpr uint32_t SMEM_BYTES = BAR_OFF + 16 * MAX_BOXES + 1024;  // + alignment slack
 constexpr float NEG = -1e30f;
 constexpr int MERGE_BATCH = 16;  // splits whose partials the merge loads at once
 
-// The cross-warp merge reuses the K tile: per warp, 4 rows of D floats (padded
-// against bank conflicts), then m and l of each row.
-constexpr int OPAD = D + 4;
-static_assert(NWARPS * REP * (OPAD + 2) * 4 <= (int)TILE, "merge area fits the K tile");
+// Shared memory of the D instance: a chunk of K, then of V (D / 64 slabs
+// each), then the barriers. The cross-warp merge reuses the K tile: per warp,
+// PROWS rows of D floats (padded against bank conflicts), then m and l of
+// each row.
+template <int D>
+struct Smem {
+  static constexpr uint32_t TILE = (D / 64) * SLAB;
+  static constexpr uint32_t BAR_OFF = 2 * TILE;
+  static constexpr uint32_t BYTES = BAR_OFF + 16 * MAX_BOXES + 1024;  // + alignment slack
+  static constexpr int OPAD = D + 4;
+  static_assert(NWARPS * PROWS * (OPAD + 2) * 4 <= (int)TILE, "merge area fits the K tile");
+  static_assert(BYTES <= 232448, "fits a block's shared memory");
+};
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -101,8 +112,8 @@ __device__ __forceinline__ void mma_top(float (&d)[2], uint32_t a0, uint32_t a2,
       : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f));
 }
 
-// Shared address of the 16-byte column chunk ch (0..15) of row r of a tile
-// in the swizzled slab layout TMA writes.
+// Shared address of the 16-byte column chunk ch (0 .. D/8 - 1) of row r of a
+// tile in the swizzled slab layout TMA writes.
 __device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int r, int ch) {
   return tile + (ch >> 3) * SLAB + r * ROW + (((ch & 7) ^ (r & 7)) << 4);
 }
@@ -119,18 +130,23 @@ __device__ __forceinline__ int slot_length(const int* lengths, int b, int max_pa
   return max(0, min(lengths[b], max_pages * page_size));
 }
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 paged_attention_split_kernel(const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              const bf16* __restrict__ q, const int* __restrict__ table,
                              const int* __restrict__ lengths, bf16* __restrict__ out,
                              float* __restrict__ part_acc, float* __restrict__ part_ml,
-                             int n_kv, int total_pages, int page_size, int max_pages,
-                             int n_splits) {
+                             int n_kv, int group, int n_pass, int total_pages, int page_size,
+                             int max_pages, int n_splits) {
+  using S = Smem<D>;
   const int z = blockIdx.x;
-  const int g = blockIdx.y;
+  const int g = blockIdx.y / n_pass;        // kv head
+  const int pass = blockIdx.y % n_pass;     // which PROWS q heads of its group
   const int b = blockIdx.z;
-  const int nh = n_kv * REP;
+  const int nh = n_kv * group;
+  const int h0 = g * group + pass * PROWS;  // the pass's first q head
+  const int rows = min(PROWS, group - pass * PROWS);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -146,8 +162,8 @@ paged_attention_split_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int n_chunks = (len + CHUNK - 1) / CHUNK;
   if (z >= max(n_chunks, 1)) return;
   if (n_chunks == 0) {  // lengths[b] <= 0: zeros, from split 0
-    bf16* ob = out + ((long)b * nh + (long)g * REP) * D;
-    for (int i = tid; i < REP * D; i += NTHREADS) ob[i] = __float2bfloat16(0.f);
+    bf16* ob = out + ((long)b * nh + h0) * D;
+    for (int i = tid; i < rows * D; i += NTHREADS) ob[i] = __float2bfloat16(0.f);
     return;
   }
   const int n_active = min(n_splits, n_chunks);
@@ -157,8 +173,8 @@ paged_attention_split_kernel(const __grid_constant__ CUtensorMap tm_k,
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t sK = base;
-  const uint32_t sV = base + TILE;
-  const uint32_t bar_k = base + BAR_OFF;       // + 8 i, box i of K
+  const uint32_t sV = base + S::TILE;
+  const uint32_t bar_k = base + S::BAR_OFF;      // + 8 i, box i of K
   const uint32_t bar_v = bar_k + 8 * MAX_BOXES;  // + 8 i, box i of V
 
   if (tid < n_boxes) {
@@ -168,16 +184,18 @@ paged_attention_split_kernel(const __grid_constant__ CUtensorMap tm_k,
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();
 
-  // Q as the A operand: rows 0-3 are the group's heads (lanes 0-15 hold them),
-  // rows 4-15 are zero. qa[kk] = the k16 step kk's a0 and a2.
+  // Q as the A operand: row lane / 4 (0-7) is q head h0 + lane / 4 while it
+  // lies in the group, else zero; rows 8-15 are zero. qa[kk] = the k16 step
+  // kk's a0 and a2.
   uint32_t qa[D / 16][2];
   {
+    const bool live = lane / 4 < rows;
     const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        q + ((long)b * nh + (long)g * REP + (lane / 4) % REP) * D);
+        q + ((long)b * nh + h0 + (live ? lane / 4 : 0)) * D);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      qa[kk][0] = lane < 16 ? qrow[8 * kk + lane % 4] : 0u;
-      qa[kk][1] = lane < 16 ? qrow[8 * kk + 4 + lane % 4] : 0u;
+      qa[kk][0] = live ? qrow[8 * kk + lane % 4] : 0u;
+      qa[kk][1] = live ? qrow[8 * kk + 4 + lane % 4] : 0u;
     }
   }
 
@@ -199,11 +217,13 @@ paged_attention_split_kernel(const __grid_constant__ CUtensorMap tm_k,
       const uint32_t bytes = box_rows * D * 2;
       const uint32_t dst = lane * box_rows * ROW;
       mbar_expect_tx(bar_k + 8 * lane, bytes);
-      tma_load(sK + dst, &tm_k, bar_k + 8 * lane, 0, 0, row, g);
-      tma_load(sK + SLAB + dst, &tm_k, bar_k + 8 * lane, 64, 0, row, g);
+#pragma unroll
+      for (int sl = 0; sl < D / 64; ++sl)
+        tma_load(sK + sl * SLAB + dst, &tm_k, bar_k + 8 * lane, 64 * sl, 0, row, g);
       mbar_expect_tx(bar_v + 8 * lane, bytes);
-      tma_load(sV + dst, &tm_v, bar_v + 8 * lane, 0, 0, row, g);
-      tma_load(sV + SLAB + dst, &tm_v, bar_v + 8 * lane, 64, 0, row, g);
+#pragma unroll
+      for (int sl = 0; sl < D / 64; ++sl)
+        tma_load(sV + sl * SLAB + dst, &tm_v, bar_v + 8 * lane, 64 * sl, 0, row, g);
     }
     const int r0 = warp * WROWS;      // this warp's first row in the chunk
     const int wlim = lim - c0 - r0;   // rows of this warp that were loaded (may be <= 0)
@@ -262,7 +282,7 @@ paged_attention_split_kernel(const __grid_constant__ CUtensorMap tm_k,
       o[n][1] *= alpha;
     }
 
-    // ---- O += P.V: 2 k16 steps of 16 rows, 16 n8 tiles of D ---------------
+    // ---- O += P.V: 2 k16 steps of 16 rows, D / 8 n8 tiles ------------------
     for (int i = box0; i <= box1; ++i) mbar_wait(bar_v + 8 * i, it & 1);
 #pragma unroll
     for (int kk = 0; kk < WROWS / 16; ++kk) {
@@ -283,103 +303,142 @@ paged_attention_split_kernel(const __grid_constant__ CUtensorMap tm_k,
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
   __syncthreads();  // every warp is done with the K tile, which now holds the merge
-  float* sO = reinterpret_cast<float*>(smem);          // [NWARPS][REP][OPAD]
-  float* sML = sO + NWARPS * REP * OPAD;               // [NWARPS][REP][2]
-  if (lane < 16) {
+  float* sO = reinterpret_cast<float*>(smem);          // [NWARPS][PROWS][OPAD]
+  float* sML = sO + NWARPS * PROWS * S::OPAD;          // [NWARPS][PROWS][2]
+  if (lane / 4 < rows) {
     const int r = lane / 4;
-    float* dst = sO + (warp * REP + r) * OPAD + 2 * (lane % 4);
+    float* dst = sO + (warp * PROWS + r) * S::OPAD + 2 * (lane % 4);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0], o[n][1]);
     if (lane % 4 == 0) {
-      sML[(warp * REP + r) * 2] = m;
-      sML[(warp * REP + r) * 2 + 1] = l;
+      sML[(warp * PROWS + r) * 2] = m;
+      sML[(warp * PROWS + r) * 2 + 1] = l;
     }
   }
   __syncthreads();
-  const int r = tid / 32;        // head of the group
-  const int d0 = 4 * (tid % 32);  // 4 columns per thread
-  float mw[NWARPS], M = NEG;
+  // 4 columns per thread: item i is head i / (D / 4), columns 4 (i % (D / 4)) + 0..3
+  for (int i = tid; i < rows * (D / 4); i += NTHREADS) {
+    const int r = i / (D / 4);
+    const int d0 = 4 * (i % (D / 4));
+    float mw[NWARPS], M = NEG;
 #pragma unroll
-  for (int w = 0; w < NWARPS; ++w) {
-    mw[w] = sML[(w * REP + r) * 2];
-    M = fmaxf(M, mw[w]);
-  }
-  float L = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int w = 0; w < NWARPS; ++w) {
+      mw[w] = sML[(w * PROWS + r) * 2];
+      M = fmaxf(M, mw[w]);
+    }
+    float L = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int w = 0; w < NWARPS; ++w) {
-    const float f = exp2_approx(mw[w] - M);
-    L += sML[(w * REP + r) * 2 + 1] * f;
-    const float4 v = *reinterpret_cast<const float4*>(sO + (w * REP + r) * OPAD + d0);
-    acc[0] += v.x * f;
-    acc[1] += v.y * f;
-    acc[2] += v.z * f;
-    acc[3] += v.w * f;
-  }
-  const long row = (long)b * nh + (long)g * REP + r;
-  if (n_active == 1) {
-    const float inv = 1.f / L;
-    uint2 packed;
-    packed.x = pack_bf16(acc[0] * inv, acc[1] * inv);
-    packed.y = pack_bf16(acc[2] * inv, acc[3] * inv);
-    *reinterpret_cast<uint2*>(out + row * D + d0) = packed;
-  } else {
-    const long part = row * n_splits + z;
-    *reinterpret_cast<float4*>(part_acc + part * D + d0) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-    if (tid % 32 == 0) {
-      part_ml[part * 2] = M;
-      part_ml[part * 2 + 1] = L;
+    for (int w = 0; w < NWARPS; ++w) {
+      const float f = exp2_approx(mw[w] - M);
+      L += sML[(w * PROWS + r) * 2 + 1] * f;
+      const float4 v = *reinterpret_cast<const float4*>(sO + (w * PROWS + r) * S::OPAD + d0);
+      acc[0] += v.x * f;
+      acc[1] += v.y * f;
+      acc[2] += v.z * f;
+      acc[3] += v.w * f;
+    }
+    const long row = (long)b * nh + h0 + r;
+    if (n_active == 1) {
+      const float inv = 1.f / L;
+      uint2 packed;
+      packed.x = pack_bf16(acc[0] * inv, acc[1] * inv);
+      packed.y = pack_bf16(acc[2] * inv, acc[3] * inv);
+      *reinterpret_cast<uint2*>(out + row * D + d0) = packed;
+    } else {
+      const long part = row * n_splits + z;
+      *reinterpret_cast<float4*>(part_acc + part * D + d0) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+      if (d0 == 0) {
+        part_ml[part * 2] = M;
+        part_ml[part * 2 + 1] = L;
+      }
     }
   }
 }
 
 // Merge the splits of each slot that needed more than one, in split order.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 paged_attention_merge_kernel(const int* __restrict__ lengths, const float* __restrict__ part_acc,
                              const float* __restrict__ part_ml, bf16* __restrict__ out, int n_kv,
-                             int page_size, int max_pages, int n_splits) {
-  const int g = blockIdx.x;
+                             int group, int n_pass, int page_size, int max_pages, int n_splits) {
+  const int g = blockIdx.x / n_pass;
+  const int pass = blockIdx.x % n_pass;
   const int b = blockIdx.y;
   const int len = slot_length(lengths, b, max_pages, page_size);
   const int n_active = min(n_splits, (len + CHUNK - 1) / CHUNK);
   if (n_active <= 1) return;  // written by the split kernel
-  const int r = threadIdx.x / 32;
-  const int d0 = 4 * (threadIdx.x % 32);
-  const long row = (long)b * n_kv * REP + (long)g * REP + r;
-  const float* ml = part_ml + row * n_splits * 2;
-  const float* pa = part_acc + row * n_splits * D + d0;
-  // MERGE_BATCH splits' partials are loaded at once, then folded in split
-  // order into a running (M, L, acc): one round of loads per batch.
-  float M = NEG, L = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int z0 = 0; z0 < n_active; z0 += MERGE_BATCH) {
-    float mz[MERGE_BATCH], lz[MERGE_BATCH];
-    float4 vz[MERGE_BATCH];
+  const int rows = min(PROWS, group - pass * PROWS);
+  for (int i = threadIdx.x; i < rows * (D / 4); i += NTHREADS) {
+    const int r = i / (D / 4);
+    const int d0 = 4 * (i % (D / 4));
+    const long row = (long)b * n_kv * group + (long)g * group + pass * PROWS + r;
+    const float* ml = part_ml + row * n_splits * 2;
+    const float* pa = part_acc + row * n_splits * D + d0;
+    // MERGE_BATCH splits' partials are loaded at once, then folded in split
+    // order into a running (M, L, acc): one round of loads per batch.
+    float M = NEG, L = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int z0 = 0; z0 < n_active; z0 += MERGE_BATCH) {
+      float mz[MERGE_BATCH], lz[MERGE_BATCH];
+      float4 vz[MERGE_BATCH];
 #pragma unroll
-    for (int i = 0; i < MERGE_BATCH; ++i) {
-      const bool live = z0 + i < n_active;
-      mz[i] = live ? ml[2 * (z0 + i)] : NEG;
-      lz[i] = live ? ml[2 * (z0 + i) + 1] : 0.f;
-      vz[i] = live ? *reinterpret_cast<const float4*>(pa + (z0 + i) * D)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+      for (int k = 0; k < MERGE_BATCH; ++k) {
+        const bool live = z0 + k < n_active;
+        mz[k] = live ? ml[2 * (z0 + k)] : NEG;
+        lz[k] = live ? ml[2 * (z0 + k) + 1] : 0.f;
+        vz[k] = live ? *reinterpret_cast<const float4*>(pa + (z0 + k) * D)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
 #pragma unroll
-    for (int i = 0; i < MERGE_BATCH; ++i) {
-      const float m_new = fmaxf(M, mz[i]);
-      const float a = exp2_approx(M - m_new), f = exp2_approx(mz[i] - m_new);
-      M = m_new;
-      L = L * a + lz[i] * f;
-      acc[0] = acc[0] * a + vz[i].x * f;
-      acc[1] = acc[1] * a + vz[i].y * f;
-      acc[2] = acc[2] * a + vz[i].z * f;
-      acc[3] = acc[3] * a + vz[i].w * f;
+      for (int k = 0; k < MERGE_BATCH; ++k) {
+        const float m_new = fmaxf(M, mz[k]);
+        const float a = exp2_approx(M - m_new), f = exp2_approx(mz[k] - m_new);
+        M = m_new;
+        L = L * a + lz[k] * f;
+        acc[0] = acc[0] * a + vz[k].x * f;
+        acc[1] = acc[1] * a + vz[k].y * f;
+        acc[2] = acc[2] * a + vz[k].z * f;
+        acc[3] = acc[3] * a + vz[k].w * f;
+      }
     }
+    const float inv = 1.f / L;
+    uint2 packed;
+    packed.x = pack_bf16(acc[0] * inv, acc[1] * inv);
+    packed.y = pack_bf16(acc[2] * inv, acc[3] * inv);
+    *reinterpret_cast<uint2*>(out + row * D + d0) = packed;
   }
-  const float inv = 1.f / L;
-  uint2 packed;
-  packed.x = pack_bf16(acc[0] * inv, acc[1] * inv);
-  packed.y = pack_bf16(acc[2] * inv, acc[3] * inv);
-  *reinterpret_cast<uint2*>(out + row * D + d0) = packed;
+}
+
+template <int D>
+int launch(EncodeTiledFn encode, const void* q, const void* k_pool, const void* v_pool,
+           const void* table, const void* lengths, void* out, int B, int nh, int n_kv,
+           int total_pages, int page_size, int max_pages, void* partials, int n_splits,
+           cudaStream_t st) {
+  using S = Smem<D>;
+  const int group = nh / n_kv;
+  const int n_pass = (group + PROWS - 1) / PROWS;
+  const int box_rows = box_rows_of(page_size);
+  CUtensorMap tm_k, tm_v;
+  if (!make_map(encode, &tm_k, k_pool, n_kv, total_pages * page_size, 1, D, box_rows) ||
+      !make_map(encode, &tm_v, v_pool, n_kv, total_pages * page_size, 1, D, box_rows))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_split_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  float* part_acc = static_cast<float*>(partials);
+  float* part_ml = n_splits > 1 ? part_acc + (long)B * nh * n_splits * D : nullptr;
+  paged_attention_split_kernel<D><<<dim3(n_splits, n_kv * n_pass, B), NTHREADS, S::BYTES, st>>>(
+      tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<bf16*>(out), part_acc, part_ml, n_kv, group,
+      n_pass, total_pages, page_size, max_pages, n_splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  paged_attention_merge_kernel<D><<<dim3(n_kv * n_pass, B), NTHREADS, 0, st>>>(
+      static_cast<const int*>(lengths), part_acc, part_ml, static_cast<bf16*>(out), n_kv, group,
+      n_pass, page_size, max_pages, n_splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -392,37 +451,25 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pool, const voi
   if (n_kv <= 0 || nh % n_kv != 0 || page_size <= 0 || max_pages <= 0 || total_pages <= 0 ||
       n_splits <= 0 || (n_splits > 1 && partials == nullptr))
     return (int)cudaErrorInvalidValue;
-  // Built for the one shape on the serving path (llama_1b, llama3_8b): D 128,
-  // 4 q heads per kv head; a page is whole boxes of 8..128 rows.
-  if (d != D || nh / n_kv != REP || page_size % 8 != 0) return (int)cudaErrorInvalidValue;
+  // a page is whole boxes of 8..128 rows
+  if (page_size % 8 != 0) return (int)cudaErrorInvalidValue;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int box_rows = box_rows_of(page_size);
-  CUtensorMap tm_k, tm_v;
-  if (!make_map(encode, &tm_k, k_pool, n_kv, total_pages * page_size, 1, D, box_rows) ||
-      !make_map(encode, &tm_v, v_pool, n_kv, total_pages * page_size, 1, D, box_rows))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_split_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part_acc = static_cast<float*>(partials);
-  float* part_ml = n_splits > 1 ? part_acc + (long)B * nh * n_splits * D : nullptr;
-  paged_attention_split_kernel<<<dim3(n_splits, n_kv, B), NTHREADS, SMEM_BYTES, st>>>(
-      tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<bf16*>(out), part_acc, part_ml, n_kv,
-      total_pages, page_size, max_pages, n_splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
-  paged_attention_merge_kernel<<<dim3(n_kv, B), NTHREADS, 0, st>>>(
-      static_cast<const int*>(lengths), part_acc, part_ml, static_cast<bf16*>(out), n_kv,
-      page_size, max_pages, n_splits);
-  return (int)cudaGetLastError();
+  if (d == 128)
+    return launch<128>(encode, q, k_pool, v_pool, table, lengths, out, B, nh, n_kv, total_pages,
+                       page_size, max_pages, partials, n_splits, st);
+  if (d == 256)
+    return launch<256>(encode, q, k_pool, v_pool, table, lengths, out, B, nh, n_kv, total_pages,
+                       page_size, max_pages, partials, n_splits, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Rows of a chunk, for the wrapper's split count to check against.
 extern "C" int paged_attention_chunk_rows() { return CHUNK; }
+
+// q heads a split block serves, for the wrapper's count of passes.
+extern "C" int paged_attention_pass_rows() { return PROWS; }
 
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -9,13 +9,15 @@ slot * max_seq.
 Decode attention runs the hand-written CUDA kernels ``csrc/paged_attention.cu``
 through ``paged_attention``: they read exactly the pages a slot owns, in place
 in the pool, each slot's sequence split over several blocks whose partial
-softmaxes a second kernel merges. On a CPU tensor the wrapper runs
+softmaxes a second kernel merges (bf16, head dim 128 or 256, any GQA group);
+fp32 goes to the CUDA-core decode kernel of ``csrc/attention_simt.cu``
+(counted as ``paged_attention_simt``). On a CPU tensor the wrapper runs
 ``_paged_attention_reference``, the gather-based plain version. On the card,
 ``_paged_attention`` sends a layer of a head dim the kernel does not tile
 (``kernel_tiles``: the JAX package's rule, ``head_dim % 128 != 0``) to the
 plain version and counts it as ``paged_attention_plain``, as the JAX package
-takes its gather path there. A head dim it tiles at a GQA group or dtype the
-kernel does not take raises in the wrapper.
+takes its gather path there. A head dim it tiles in a dtype the kernels do
+not take (fp16), or above 256, raises in the wrapper.
 
 The pool is updated in place where the JAX version donates it through
 ``jit``. PAGE 0 IS THE TRASH PAGE: inactive slots and padded prefill rows
@@ -40,10 +42,12 @@ from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 KERNEL = "paged_attention"
+SIMT = "paged_attention_simt"
 PLAIN = "paged_attention_plain"
-# What the kernel takes: bf16, one head dim, one GQA group. The dispatch rule
-# sends only head dims off multiples of TILE to the plain version.
-HEAD_DIM, GROUP, TILE = 128, 4, 128
+# What the kernels take, at any GQA group: the tensor-core kernel bf16 at
+# these head dims, the CUDA-core kernel fp32 at these and 64. The dispatch
+# rule sends only head dims off multiples of TILE to the plain version.
+HEAD_DIMS, SIMT_HEAD_DIMS, TILE = (128, 256), (64, 128, 256), 128
 
 
 class PagedKVCache(NamedTuple):
@@ -93,6 +97,9 @@ def _paged_attention_reference(q, k_pool, v_pool, table, lengths, scale):
 CHUNK = 128
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+_SIMT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# q heads a block of the split kernel serves; a larger group goes in passes
+PASS_ROWS = 8
 
 
 def split_count(b: int, nkv: int, max_pages: int, page_size: int, sms: int) -> int:
@@ -105,13 +112,18 @@ def split_count(b: int, nkv: int, max_pages: int, page_size: int, sms: int) -> i
 
 
 def check_layer(head_dim: int, num_heads: int, num_kv_heads: int, dtype) -> None:
-    """Raise unless the kernel takes a layer of this shape and dtype: bf16,
-    head_dim 128, 4 q heads per kv head."""
-    if head_dim != HEAD_DIM or num_heads % num_kv_heads or num_heads // num_kv_heads != GROUP:
-        raise ValueError(f"paged_attention kernel takes D {HEAD_DIM} and nh/n_kv {GROUP}; "
-                         f"got D={head_dim}, nh={num_heads}, n_kv={num_kv_heads}")
-    if dtype != torch.bfloat16:
-        raise ValueError(f"paged_attention kernel takes bfloat16, got {dtype}")
+    """Raise unless a kernel takes a layer of this shape and dtype: any
+    group (num_heads % num_kv_heads == 0); bf16 at head_dim 128 or 256 (the
+    tensor-core kernel), fp32 at 64, 128 or 256 (the CUDA-core kernel)."""
+    if num_kv_heads <= 0 or num_heads % num_kv_heads:
+        raise ValueError(f"paged_attention takes nh % n_kv == 0; "
+                         f"got nh={num_heads}, n_kv={num_kv_heads}")
+    dims = {torch.bfloat16: HEAD_DIMS, torch.float32: SIMT_HEAD_DIMS}.get(dtype)
+    if dims is None:
+        raise ValueError(f"paged_attention kernels take bfloat16 or float32, got {dtype}")
+    if head_dim not in dims:
+        raise ValueError(f"paged_attention kernel takes D {' or '.join(map(str, dims))} in "
+                         f"{dtype}; got D={head_dim}")
 
 
 def check_page_size(page_size: int) -> None:
@@ -131,11 +143,21 @@ def _sm_count(index: int) -> int:
 def _entry():
     """The library and its C entry point, argument types set once."""
     lib = _kernels.library(KERNEL)
-    rows = lib.paged_attention_chunk_rows()
-    if rows != CHUNK:
-        raise RuntimeError(f"{KERNEL} library loads {rows} rows a chunk, split_count {CHUNK}")
+    rows, pass_rows = lib.paged_attention_chunk_rows(), lib.paged_attention_pass_rows()
+    if (rows, pass_rows) != (CHUNK, PASS_ROWS):
+        raise RuntimeError(f"{KERNEL} library loads {rows} rows a chunk for {pass_rows} q heads, "
+                           f"split_count {CHUNK} for {PASS_ROWS}")
     fn = lib.paged_attention_bf16
     fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _simt_entry():
+    lib = _kernels.library("attention_simt")
+    fn = lib.simt_paged_attention
+    fn.argtypes = _SIMT_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -143,30 +165,42 @@ def _entry():
 def paged_attention(q, k_pool, v_pool, table, lengths):
     """Kernel wrapper. q: [B, nh, D], already scaled; pools: [n_kv, P_total,
     ps, D] (one layer); table: [B, max_pages] int32; lengths: [B] int32.
-    Launches the CUDA kernels for CUDA tensors (bf16, D 128, nh/n_kv 4: the
-    shape of every config on the serving path; page size a multiple of 8)
-    and raises on anything else; runs the plain version for CPU tensors."""
+    Launches the CUDA kernels for CUDA tensors (any nh % n_kv == 0; bf16 at
+    D 128 or 256 with a page size that is a multiple of 8: the split and
+    merge kernels; fp32 at D 64, 128 or 256: the CUDA-core kernel) and raises
+    on anything else; runs the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return _paged_attention_reference(q, k_pool, v_pool, table, lengths, 1.0)
     b, nh, d = q.shape
     nkv, total_pages, ps, _ = k_pool.shape
     max_pages = table.shape[1]
     check_layer(d, nh, nkv, q.dtype)
-    check_page_size(ps)
+    simt = q.dtype == torch.float32
+    if not simt:
+        check_page_size(ps)
     if v_pool.shape != k_pool.shape or k_pool.shape[3] != d:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not fit q")
     if table.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"table {tuple(table.shape)} / lengths {tuple(lengths.shape)} "
                          f"do not fit {b} slots")
     dev = q.device
-    for name, t, dt in (("q", q, torch.bfloat16), ("k_pool", k_pool, torch.bfloat16),
-                        ("v_pool", v_pool, torch.bfloat16), ("table", table, torch.int32),
+    for name, t, dt in (("q", q, q.dtype), ("k_pool", k_pool, q.dtype),
+                        ("v_pool", v_pool, q.dtype), ("table", table, torch.int32),
                         ("lengths", lengths, torch.int32)):
         if t.dtype != dt or t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned {dt} tensor on "
                              f"{dev}, got {t.dtype} on {t.device}")
-    splits = split_count(b, nkv, max_pages, ps, _sm_count(dev.index))
     out = torch.empty_like(q)
+    if simt:
+        lib, fn = _simt_entry()
+        err = fn(_kernels.ptr(q), _kernels.ptr(k_pool), _kernels.ptr(v_pool),
+                 _kernels.ptr(table), _kernels.ptr(lengths), _kernels.ptr(out), b, nh, nkv, d,
+                 total_pages, ps, max_pages, 0, _kernels.stream_of(q))
+        _kernels.check(lib, err, SIMT)
+        _kernels.launch_counts[SIMT] += 1
+        return out
+    passes = -(-(nh // nkv) // PASS_ROWS)
+    splits = split_count(b, nkv * passes, max_pages, ps, _sm_count(dev.index))
     partials = (torch.empty(b * nh * splits * (d + 2), dtype=torch.float32, device=dev)
                 if splits > 1 else None)
     lib, fn = _entry()

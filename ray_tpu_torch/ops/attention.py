@@ -16,7 +16,13 @@ Port of ray_tpu/ops/attention.py.
   ``flash_fwd`` and ``flash_fwd_lse``.
 - ``flash_bwd`` wraps the two backward kernels (``csrc/flash_bwd.cu``): dQ
   (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 64 or 128,
-  any number of q heads per kv head. ``delta = rowsum(dO * O)`` is computed
+  any number of q heads per kv head.
+- The same wrappers send fp32 at head dim 64, 128 or 256, and bf16 at head
+  dim 256, to the CUDA-core kernels of ``csrc/attention_simt.cu`` (full fp32
+  products, no TF32), which count under their own names with ``_simt``
+  appended (``flash_fwd_simt``, ``flash_fwd_lse_simt``,
+  ``flash_bwd_dq_simt``, ``flash_bwd_dkv_simt``). In fp32 ``out_lo`` is
+  zeros. ``delta = rowsum(dO * O)`` is computed
   here in fp32, outside the kernels, as the JAX package computes it, but
   from ``out + out_lo``: ``delta`` has to equal the sum over keys of
   ``p * dP`` that the backward's own ``p`` and ``dP`` carry, and the bf16
@@ -41,7 +47,7 @@ The dispatch rule of ``"auto"`` on the card is ``flash_tiles``, decided
 before any launch from the head dim alone, as the JAX package takes its
 reference path for what its kernel does not tile: CUDA tensors of a head dim
 the kernels tile go to the wrappers; CUDA tensors of another head dim (the
-forward and backward kernels both tile 64 and 128) go to
+forward and backward kernels together tile 64, 128 and 256) go to
 ``reference_attention``, with autograd through it, and each such call adds
 one to ``launch_counts["attention_plain"]``. A head dim the kernels tile in
 a dtype or layout they do not take raises in the wrapper, as it does under
@@ -68,10 +74,13 @@ import torch
 from ray_tpu_torch import _kernels
 
 NEG_INF = -1e30
-FWD_LIB, BWD_LIB = "flash_fwd", "flash_bwd"
+FWD_LIB, BWD_LIB, SIMT_LIB = "flash_fwd", "flash_bwd", "attention_simt"
 # The head dims the kernels take, forward and backward alike, at any GQA
-# group (Hq % Hkv == 0); bf16 only.
-KERNEL_DIMS = (64, 128)
+# group (Hq % Hkv == 0): the tensor-core kernels bf16 at 64 and 128, the
+# CUDA-core kernels fp32 at all three and bf16 at 256.
+KERNEL_DIMS = (64, 128, 256)
+WGMMA_DIMS = (64, 128)
+SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN = "attention_plain"
 
 
@@ -178,26 +187,48 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal attention requires Skv >= Sq, got {skv} < {sq}")
 
 
+def simt_route(kernel: str, dtype, head_dim: int) -> bool:
+    """Whether a CUDA call of this dtype and head dim goes to the CUDA-core
+    kernels (``csrc/attention_simt.cu``): fp32 at any head dim the kernels
+    tile, bf16 at 256. bf16 at 64 and 128 goes to the tensor-core kernels;
+    anything else raises."""
+    if head_dim not in KERNEL_DIMS:
+        raise ValueError(f"{kernel} kernel takes head_dim "
+                         f"{' or '.join(map(str, KERNEL_DIMS))}, got {head_dim}")
+    if dtype not in SIMT_DTYPES:
+        raise ValueError(f"{kernel} kernel takes bfloat16 or float32, got {dtype}")
+    return dtype == torch.float32 or head_dim not in WGMMA_DIMS
+
+
 def _launch_fwd(q, k, v, causal: bool, scale: float, training: bool):
     """One launch of the forward kernel on CUDA tensors: (out, lse, out_lo),
     the last two None unless ``training``."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    _check_cuda_inputs("flash_fwd", KERNEL_DIMS, q=q, k=k, v=v)
+    _check_cuda_inputs("flash_fwd", q=q, k=k, v=v)
+    simt = simt_route("flash_fwd", q.dtype, d)
     out = torch.empty_like(q)
     lse = out_lo = None
     if training:
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
         out_lo = torch.empty_like(q)
-    lib = _kernels.library(FWD_LIB)
-    fn = lib.flash_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    args = [_kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
+            ctypes.c_void_p(lse.data_ptr() if training else None),
+            ctypes.c_void_p(out_lo.data_ptr() if training else None),
+            b, sq, skv, hq, hkv, d, int(causal), float(scale)]
+    if simt:
+        lib = _kernels.library(SIMT_LIB)
+        fn = lib.simt_flash_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                                                   ctypes.c_void_p]
+        args.append(SIMT_DTYPES[q.dtype])
+    else:
+        lib = _kernels.library(FWD_LIB)
+        fn = lib.flash_fwd_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
-             ctypes.c_void_p(lse.data_ptr() if training else None),
-             ctypes.c_void_p(out_lo.data_ptr() if training else None),
-             b, sq, skv, hq, hkv, d, int(causal), float(scale), _kernels.stream_of(q))
-    name = "flash_fwd_lse" if training else "flash_fwd"
+    err = fn(*args, _kernels.stream_of(q))
+    name = ("flash_fwd_lse" if training else "flash_fwd") + ("_simt" if simt else "")
     _kernels.check(lib, err, name)
     _kernels.launch_counts[name] += 1
     return out, lse, out_lo
@@ -227,16 +258,16 @@ def flash_attention_lse(q, k, v, causal: bool = True, scale: Optional[float] = N
     return _launch_fwd(q, k, v, causal, scale, training=True)
 
 
-def _check_cuda_inputs(kernel: str, dims, **tensors) -> None:
+def _check_cuda_inputs(kernel: str, **tensors) -> None:
+    """Device, dtype (one for all: q's), contiguity and alignment; the head
+    dim and the dtype's route are ``simt_route``'s."""
     q = tensors["q"]
-    d = q.shape[-1]
-    if d not in dims:
-        raise ValueError(f"{kernel} kernel takes head_dim {' or '.join(map(str, dims))}, got {d}")
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must lie on {q.device}, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{kernel} kernel takes bfloat16, got {name}.dtype={t.dtype}")
+        if t.dtype not in SIMT_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"{kernel} kernel takes bfloat16 or float32, all of one dtype; "
+                             f"got {name}.dtype={t.dtype}, q.dtype={q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
@@ -253,18 +284,31 @@ _BWD_ARGTYPES = {
     + [ctypes.c_float, ctypes.c_void_p],
     "flash_bwd_dkv_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
+    "simt_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "simt_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 
 
-def _launch_bwd(name: str, symbol: str, tensors, q, k, causal: bool, scale: float) -> None:
+def _launch_bwd(name: str, tensors, q, k, causal: bool, scale: float) -> None:
+    """One launch of K2 (``name`` "flash_bwd_dq") or K3 ("flash_bwd_dkv"),
+    on the tensor-core or the CUDA-core kernel by ``simt_route``."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    lib = _kernels.library(BWD_LIB)
+    simt = simt_route("flash_bwd", q.dtype, d)
+    args = [*(_kernels.ptr(t) for t in tensors), b, sq, skv, hq, hkv, d, int(causal),
+            float(scale)]
+    if simt:
+        lib, symbol = _kernels.library(SIMT_LIB), f"simt_{name}"
+        args.append(SIMT_DTYPES[q.dtype])
+    else:
+        lib, symbol = _kernels.library(BWD_LIB), f"{name}_bf16"
     fn = getattr(lib, symbol)
     fn.argtypes = _BWD_ARGTYPES[symbol]
     fn.restype = ctypes.c_int
-    err = fn(*(_kernels.ptr(t) for t in tensors), b, sq, skv, hq, hkv, d, int(causal),
-             float(scale), _kernels.stream_of(q))
+    err = fn(*args, _kernels.stream_of(q))
+    name += "_simt" if simt else ""
     _kernels.check(lib, err, name)
     _kernels.launch_counts[name] += 1
 
@@ -273,27 +317,25 @@ def _check_bwd_inputs(q, k, v, dout, lse, delta, causal: bool) -> None:
     _check_shapes(q, k, v, causal)
     if dout.shape != q.shape:
         raise ValueError(f"dout shape {tuple(dout.shape)} != q shape {tuple(q.shape)}")
-    _check_cuda_inputs("flash_bwd", KERNEL_DIMS, q=q, k=k, v=v, dout=dout)
+    _check_cuda_inputs("flash_bwd", q=q, k=k, v=v, dout=dout)
     b, sq, hq, _ = q.shape
     _check_rows(b, hq, sq, q.device, lse=lse, delta=delta)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
-    """K2's wrapper: dq [B, Sq, Hq, D] bf16."""
+    """K2's wrapper: dq [B, Sq, Hq, D] in q's dtype."""
     _check_bwd_inputs(q, k, v, dout, lse, delta, causal)
     dq = torch.empty_like(q)
-    _launch_bwd("flash_bwd_dq", "flash_bwd_dq_bf16", (q, k, v, dout, lse, delta, dq),
-                q, k, causal, scale)
+    _launch_bwd("flash_bwd_dq", (q, k, v, dout, lse, delta, dq), q, k, causal, scale)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
-    """K3's wrapper: (dk, dv), each [B, Skv, Hkv, D] bf16, the GQA group
-    summed inside the kernel."""
+    """K3's wrapper: (dk, dv), each [B, Skv, Hkv, D] in k's dtype, the GQA
+    group summed inside the kernel."""
     _check_bwd_inputs(q, k, v, dout, lse, delta, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkv", "flash_bwd_dkv_bf16", (q, k, v, dout, lse, delta, dk, dv),
-                q, k, causal, scale)
+    _launch_bwd("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), q, k, causal, scale)
     return dk, dv
 
 
@@ -355,8 +397,8 @@ def flash_tiles(head_dim: int, grad: bool) -> bool:
     """The dispatch rule of ``attention(impl="auto")`` on the card: whether
     the kernels tile this head dim, without a gradient (the forward kernel)
     or with one (``grad``: the backward kernels run too). Both directions
-    tile 64 and 128. Group, dtype and layout are no part of the rule: the
-    wrappers raise on those they do not take."""
+    tile 64, 128 and 256. Group, dtype and layout are no part of the rule:
+    the wrappers raise on those they do not take."""
     return head_dim in KERNEL_DIMS
 
 

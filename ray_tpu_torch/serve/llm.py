@@ -100,7 +100,8 @@ class LLMEngine:
                 # the decode kernel's limits, at construction, not at the first tick
                 check_layer(config.head_dim_, config.num_heads, config.num_kv_heads,
                             config.dtype)
-                check_page_size(page_size)
+                if config.dtype == torch.bfloat16:  # the TMA kernel's page boxes
+                    check_page_size(page_size)
             self.page_size = page_size
             self.pages_per_slot = -(-self.max_seq // page_size)
             # default pool: dense-equivalent capacity (+1 trash page)

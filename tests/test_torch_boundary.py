@@ -42,6 +42,8 @@ def test_the_port_has_files_to_check():
             "ray_tpu_torch/tune/tuner.py"} <= names
     assert {"ray_tpu_torch/serve/api.py", "ray_tpu_torch/serve/proxy.py",
             "ray_tpu_torch/rl/dqn.py", "ray_tpu_torch/rl/impala.py"} <= names
+    assert {"ray_tpu_torch/data/dataset.py", "ray_tpu_torch/data/shuffle/coordinator.py",
+            "ray_tpu_torch/bench_data_train.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -98,8 +98,8 @@ def test_flash_fwd_is_deterministic(dev, d):
 
 
 def test_flash_fwd_rejects_what_it_does_not_take(dev):
-    q = torch.randn(1, 8, 2, 128, device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
+    q = torch.randn(1, 8, 2, 128, device=dev).half()  # fp16: neither kernel family takes it
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         flash_attention(q, q, q)
     q32 = torch.randn(1, 8, 2, 32, device=dev).to(torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
@@ -193,22 +193,27 @@ def test_paged_attention_is_deterministic(dev):
 
 
 def test_paged_attention_rejects_what_it_does_not_take(dev):
-    q = torch.randn(2, 8, 128, device=dev)
-    pool = torch.zeros(2, 3, 16, 128, device=dev)
+    q = torch.randn(2, 8, 128, device=dev).half()
+    pool = torch.zeros(2, 3, 16, 128, device=dev).half()
     table = torch.zeros(2, 2, dtype=torch.int32, device=dev)
     lengths = torch.ones(2, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         pd.paged_attention(q, pool, pool, table, lengths)
     qb, pb = q.to(torch.bfloat16), pool.to(torch.bfloat16)
     with pytest.raises(ValueError, match="int32"):
         pd.paged_attention(qb, pb, pb, table.long(), lengths)
-    with pytest.raises(ValueError, match="nh/n_kv"):
+    with pytest.raises(ValueError, match="nh % n_kv"):
         q6 = torch.zeros(2, 6, 128, device=dev, dtype=torch.bfloat16)
-        pd.paged_attention(q6, pb[:1], pb[:1], table, lengths)
-    with pytest.raises(ValueError, match="D 128"):
+        p4 = torch.zeros(4, 3, 16, 128, device=dev, dtype=torch.bfloat16)
+        pd.paged_attention(q6, p4, p4, table, lengths)
+    with pytest.raises(ValueError, match="D 128 or 256"):
         q64 = torch.zeros(2, 8, 64, device=dev, dtype=torch.bfloat16)
         p64 = torch.zeros(2, 3, 16, 64, device=dev, dtype=torch.bfloat16)
         pd.paged_attention(q64, p64, p64, table, lengths)
+    with pytest.raises(ValueError, match="D 128 or 256"):  # above 256: the limit left
+        q384 = torch.zeros(2, 8, 384, device=dev, dtype=torch.bfloat16)
+        p384 = torch.zeros(2, 3, 16, 384, device=dev, dtype=torch.bfloat16)
+        pd.paged_attention(q384, p384, p384, table, lengths)
 
 
 @pytest.mark.parametrize("ps", [4, 12])
@@ -321,8 +326,8 @@ def test_flash_bwd_rejects_what_it_does_not_take(dev):
         return q, k, k, q, lse, q
     with pytest.raises(ValueError, match="head_dim"):
         ta.flash_bwd(*case(1, 64, 8, 2, 32))
-    with pytest.raises(ValueError, match="bfloat16"):
-        ta.flash_bwd(*case(1, 64, 8, 2, 64, torch.float32))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ta.flash_bwd(*case(1, 64, 8, 2, 64, torch.float16))
     with pytest.raises(ValueError, match="multiple"):
         ta.flash_bwd(*case(1, 64, 8, 3, 128))
 
@@ -358,6 +363,7 @@ def test_flash_op_gradients_match_plain(dev, b, sq, skv, causal):
 # (chip_smoke.py's model-phase tolerance): max |diff| / max |fp32|.
 MODEL_RTOL = 5e-2
 KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention")
+KERNELS += tuple(f"{n}_simt" for n in KERNELS)
 PLAINS = ("attention_plain", "paged_attention_plain")
 
 
@@ -416,8 +422,8 @@ def test_paged_dispatch_counts(dev, nh, nkv, d, want):
 
 
 @pytest.mark.parametrize("hq,hkv,d,dtype,grad,match", [
-    (16, 4, 128, torch.float32, False, "bfloat16"),   # fp32 at D128
-    (16, 4, 128, torch.float32, True, "bfloat16"),
+    (16, 4, 128, torch.float16, False, "bfloat16 or float32"),   # fp16 at D128
+    (16, 4, 128, torch.float16, True, "bfloat16 or float32"),
     (16, 6, 128, torch.bfloat16, True, "multiple"),   # Hq % Hkv != 0, with a gradient
     (12, 8, 64, torch.bfloat16, False, "multiple"),   # ... and at D64 without one
 ])
@@ -436,23 +442,23 @@ def test_attention_auto_raises_where_the_kernels_tile_but_do_not_take(dev, hq, h
 
 
 def test_paged_dispatch_raises_where_the_kernel_tiles_but_does_not_take(dev):
-    """D128 at group 2 or in fp32: the decode layer and the engine raise; the
-    engine does so when it is built."""
+    """D384 (a multiple of 128 above 256) or fp16: the decode layer and the
+    engine raise; the engine does so when it is built."""
     from ray_tpu_torch.serve.llm import LLMEngine
 
     before = _counts()
-    q, kp, vp, table, lengths = _paged_case(dev, [5, 70], 16, 8, 128, 16, 10)
-    with pytest.raises(ValueError, match="nh/n_kv 4"):
+    q, kp, vp, table, lengths = _paged_case(dev, [5, 70], 4, 2, 384, 16, 10)
+    with pytest.raises(ValueError, match="D 128 or 256"):
         pd._paged_attention(q[:, None], kp, vp, table, lengths, 1.0, None)
     q, kp, vp, table, lengths = _paged_case(dev, [5, 70], 16, 4, 128, 16, 10)
-    with pytest.raises(ValueError, match="bfloat16"):
-        pd._paged_attention(q[:, None].float(), kp.float(), vp.float(), table, lengths, 1.0,
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        pd._paged_attention(q[:, None].half(), kp.half(), vp.half(), table, lengths, 1.0,
                             None)
     assert not _delta(before)
-    with pytest.raises(ValueError, match="nh/n_kv 4"):
-        LLMEngine(_kernel_shaped(num_heads=4, num_kv_heads=2), device=dev)
-    with pytest.raises(ValueError, match="bfloat16"):
-        LLMEngine(_kernel_shaped(dtype=torch.float32), device=dev)
+    with pytest.raises(ValueError, match="D 128 or 256"):
+        LLMEngine(_kernel_shaped(num_heads=2, num_kv_heads=1, head_dim=384), device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        LLMEngine(_kernel_shaped(dtype=torch.float16), device=dev)
 
 
 def test_tiny_engine_on_the_card_matches_the_cpu(dev):
@@ -854,3 +860,151 @@ def test_sharded_eval_step_launches_the_forward_kernel(mesh1):
     got = make_eval_step(cfg, mesh=mesh1)(sharded, tokens, targets)
     assert _delta(before) == {"flash_fwd": cfg.num_layers}
     assert abs(got.item() - want.item()) <= 1e-3 * abs(want.item())
+
+
+# --------------------------------------------------------------------------- #
+# Fault C5: any GQA group and head dim 256 on the decode kernel, and the
+# CUDA-core kernels (fp32 at D64/128/256, bf16 at D256) of attention_simt.cu.
+# fp32 kernels against the plain versions (fp32 math, full fp32 products) at
+# the JAX tests' fp32 tolerance: |kernel - plain| <= 2e-5 + 2e-5 |plain|.
+# --------------------------------------------------------------------------- #
+F32_TOL = 2e-5
+
+
+def _close_f32(out, ref):
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    err = (out - ref.float()).abs()
+    assert (err <= F32_TOL + F32_TOL * ref.float().abs()).all(), err.max().item()
+
+
+@pytest.mark.parametrize("nh,nkv,d", [(16, 16, 128), (16, 8, 128), (16, 2, 128), (16, 1, 128),
+                                      (32, 1, 128), (8, 2, 256), (16, 4, 256)])
+def test_paged_attention_any_group_matches_plain(dev, nh, nkv, d):
+    """The split and merge kernels at groups 1, 2, 8, 16 and 32 (D128) and at
+    D256: the serving table (page size 64, lengths 1..512 of a 32-page row)
+    and a long ragged shape split over many blocks; bitwise repeatable."""
+    g = torch.Generator().manual_seed(nh * 7 + nkv + d)
+    for lengths in (torch.randint(1, 513, (16,), generator=g).tolist(),
+                    torch.randint(1537, 2049, (3,), generator=g).tolist()):
+        args = _paged_case(dev, lengths, nh, nkv, d, seed=nh + d)
+        _paged_check(args)
+        runs = [pd.paged_attention(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+
+
+def _f32_case(shape, seed, dev, dtype=torch.float32):
+    b, sq, skv, hq, hkv, d, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d), (b, sq, hq, d))]
+
+
+SIMT_CASES = [  # (b, sq, skv, hq, hkv, d, causal)
+    (2, 100, 300, 8, 2, 64, True),    # ragged, Sq < Skv, bottom-right causal
+    (1, 129, 129, 4, 4, 128, True),   # group 1, one row past a 16-row tile
+    (2, 77, 50, 4, 1, 128, False),    # non-causal, Sq > Skv
+    (1, 65, 200, 8, 1, 256, True),    # group 8 at D256
+    (2, 96, 96, 2, 2, 256, False),
+]
+
+
+@pytest.mark.parametrize("shape", SIMT_CASES)
+def test_simt_kernels_fp32_match_plain(dev, shape):
+    """The forward (with and without lse), dQ and dK/dV in fp32 against the
+    plain versions at 2e-5; each launches its _simt kernel once."""
+    causal, scale = shape[-1], shape[5] ** -0.5
+    q, k, v, dout = _f32_case(shape, sum(shape[:6]), dev)
+    before = _counts()
+    out = flash_attention(q, k, v, causal=causal)
+    out_l, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+    delta = ta._delta(out_l, dout, out_lo)
+    dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"flash_fwd_simt": 1, "flash_fwd_lse_simt": 1,
+                              "flash_bwd_dq_simt": 1, "flash_bwd_dkv_simt": 1}
+    ref, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
+    _close_f32(out, ref)
+    _close_f32(out_l, ref)
+    _close_f32(lse, ref_lse)
+    assert not out_lo.any()
+    _close_f32(dq, ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale))
+    for got, want in zip((dk, dv), ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                                               causal, scale)):
+        _close_f32(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 300, 8, 2, 256, True), (1, 196, 196, 4, 4, 256, False)])
+def test_simt_kernels_bf16_d256_match_plain(dev, shape):
+    """bf16 at D256, which the wgmma kernels do not tile, at the bf16
+    tolerances of the tensor-core kernels' tests; bitwise repeatable."""
+    causal = shape[-1]
+    q, k, v, dout = _f32_case(shape, sum(shape[:6]), dev, torch.bfloat16)
+    before = _counts()
+    out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+    grads = ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo)
+    again = ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"flash_fwd_lse_simt": 1, "flash_bwd_dq_simt": 2,
+                              "flash_bwd_dkv_simt": 2}
+    ref_out, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
+    _close(out, ref_out)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3 + 1e-4 * ref_lse.abs().max().item()
+    want = ta.flash_bwd_reference(q, k, v, out, lse, dout, causal, out_lo=out_lo)
+    for got, same, ref in zip(grads, again, want):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, same)
+        _close_grad(got, ref)
+
+
+@pytest.mark.parametrize("nh,nkv,d", [(8, 2, 64), (16, 16, 128), (16, 4, 128), (8, 2, 256)])
+def test_simt_paged_attention_fp32_matches_plain(dev, nh, nkv, d):
+    """The CUDA-core decode kernel in fp32 at 2e-5, with a retired slot and
+    any page size."""
+    g = torch.Generator().manual_seed(d + nh)
+    lengths = torch.randint(1, 40 * 12 + 1, (6,), generator=g).tolist()
+    q, kp, vp, table, lengths = _paged_case(dev, lengths, nh, nkv, d, 12, 40, retired=(1,),
+                                            g=g, dev_seed=d)
+    args = (q.float(), kp.float(), vp.float(), table, lengths)
+    before = _counts()
+    out = pd.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"paged_attention_simt": 1}
+    _close_f32(out, pd._paged_attention_reference(*args, 1.0))
+
+
+@pytest.mark.parametrize("dtype,nkv,head_dim", [
+    (torch.float32, 4, None), (torch.float32, 2, None), (torch.float32, 1, None),
+    (torch.bfloat16, 4, None), (torch.bfloat16, 1, None), (torch.bfloat16, 2, 256)])
+def test_c5_engine_on_the_card(dev, dtype, nkv, head_dim):
+    """A narrow 2-layer config at groups 4, 2 and 8 (fp32) and 1 and 4 (bf16),
+    and at D256 (bf16): the engine is built and answers, through the kernels
+    only; in fp32 the greedy tokens equal the CPU's."""
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = _kernel_shaped(num_heads=8, num_kv_heads=nkv, dtype=dtype,
+                         **({"head_dim": head_dim} if head_dim else {}))
+    params = llama_init(cfg, 3, "cpu")  # the same weights on both devices
+    prompts = [[3, 1, 4, 1, 5], list(range(7, 40))]
+    before = _counts()
+    eng = LLMEngine(cfg, params, device=dev, num_slots=2, max_seq_len=128, page_size=16,
+                    prefill_buckets=[64])
+    try:
+        got = [eng.generate(p, max_tokens=6, timeout=120)["tokens"] for p in prompts]
+    finally:
+        eng.stop()
+    counts = _delta(before)
+    assert not {n: c for n, c in counts.items() if n in PLAINS}, counts
+    simt = "" if dtype == torch.bfloat16 else "_simt"
+    fwd = "flash_fwd" + ("_simt" if dtype == torch.float32 or head_dim == 256 else "")
+    assert counts.get(fwd, 0) > 0 and counts.get("paged_attention" + simt, 0) > 0, counts
+    assert all(len(t) == 6 for t in got)
+    if dtype == torch.float32:
+        cpu = LLMEngine(cfg, params, device="cpu", num_slots=2, max_seq_len=128, page_size=16,
+                        prefill_buckets=[64])
+        try:
+            want = [cpu.generate(p, max_tokens=6, timeout=120)["tokens"] for p in prompts]
+        finally:
+            cpu.stop()
+        assert got == want

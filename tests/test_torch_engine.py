@@ -4,6 +4,7 @@ tiny config): the same greedy tokens for the same requests, paged and
 dense."""
 
 import concurrent.futures as cf
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +60,30 @@ def test_engine_greedy_tokens_match_jax(weights, paged):
     assert [len(t) for t in got] == MAX_TOKENS
     assert stats["tokens_generated"] == sum(MAX_TOKENS)
     assert stats["prefill_programs"] >= (2 if paged else len(PROMPTS))
+
+
+@pytest.mark.parametrize("num_kv_heads", [8, 4, 1])
+def test_engine_at_any_group_matches_jax(num_kv_heads):
+    """Groups 1, 2 and 8 (8 q heads of 16 over 8, 4 or 1 kv heads), which the
+    decode kernel takes on the card since fault C5: on the CPU the port's
+    engine gives the JAX engine's greedy tokens."""
+    narrow = dict(num_heads=8, num_kv_heads=num_kv_heads)
+    jcfg = dataclasses.replace(JConfig.tiny(dtype=jnp.float32, remat=None,
+                                            attention_impl="reference"), **narrow)
+    jparams = j_llama_init(jcfg, jax.random.key(2))
+    tcfg = dataclasses.replace(TConfig.tiny(dtype=torch.float32), **narrow)
+    jeng = JEngine(jcfg, jparams, **ENGINE_KW)
+    try:
+        with jax.default_matmul_precision("highest"):
+            want = _run(jeng)
+    finally:
+        jeng.stop()
+    teng = LLMEngine(tcfg, params_from_jax(jparams), device="cpu", **ENGINE_KW)
+    try:
+        got = _run(teng)
+    finally:
+        teng.stop()
+    assert got == want, (got, want)
 
 
 def test_engine_stream_and_eos(weights):

@@ -119,8 +119,9 @@ def test_attention_matches_jax_reference_and_interpret_kernel(b, sq, skv, hq, hk
     (64, True, True),     # ... and the backward kernels
     (32, False, False),   # tiny: D32
     (32, True, False),
-    (256, False, False),
-    (256, True, False),
+    (256, False, True),   # D256: the CUDA-core kernels
+    (256, True, True),
+    (384, False, False),
 ])
 def test_flash_dispatch_rule(d, grad, tiles):
     """Only the head dim decides: a dtype or layout the kernels do not take

@@ -143,10 +143,13 @@ def test_paged_dispatch_rule(d, tiles):
 @pytest.mark.parametrize("d,nh,nkv,dtype,match", [
     (128, 16, 4, torch.bfloat16, None),            # llama_1b
     (128, 32, 8, torch.bfloat16, None),            # llama3_8b
-    (128, 16, 8, torch.bfloat16, "nh/n_kv 4"),     # group 2
-    (128, 28, 4, torch.bfloat16, "nh/n_kv 4"),     # group 7
-    (256, 16, 4, torch.bfloat16, "D 128"),
-    (128, 16, 4, torch.float32, "bfloat16"),
+    (128, 16, 8, torch.bfloat16, None),            # group 2
+    (128, 28, 4, torch.bfloat16, None),            # group 7
+    (256, 16, 4, torch.bfloat16, None),            # D256
+    (128, 16, 4, torch.float32, None),             # fp32: the CUDA-core kernel
+    (384, 16, 4, torch.bfloat16, "D 128 or 256"),  # above 256: the one limit left
+    (128, 16, 4, torch.float16, "bfloat16 or float32"),
+    (128, 16, 3, torch.bfloat16, "nh % n_kv"),
 ])
 def test_check_layer(d, nh, nkv, dtype, match):
     if match is None:

@@ -37,7 +37,7 @@ STEP_MESHES = {"dp2_tp2": dict(dp=2, tp=2), "fsdp2_tp2": dict(fsdp=2, tp=2),
 CASES = [f"llama_step_{n}" for n in STEP_MESHES] + [
     "llama_grads_cp2_fsdp2", "llama_placements", "llama_eval_fsdp2_tp2",
     "llama_save_attn_fsdp2_tp2", "grpo_step_fsdp2_tp2", "llama_heads_indivisible",
-    "batch_shards", "llama_factory_fsdp2_tp2", "ppo_loss_fsdp2_tp2"]
+    "batch_shards", "llama_factory_fsdp2_tp2", "ppo_loss_fsdp2_tp2", "data_iter_sharded"]
 PPO_KW = dict(entropy_coef=0.01)
 GRPO_KW = dict(clip_eps=0.2, kl_coef=0.05)
 
@@ -59,6 +59,7 @@ def _inputs():
             "llama_batch": (tokens, np.roll(tokens, -1, axis=1)),
             "grpo_params": jax.tree.map(np.asarray, gp), "grpo_batch": _grpo_inputs(gp, JCFG, 13),
             "grpo_kw": GRPO_KW, "batch_rows": np.arange(24.0, dtype=np.float32).reshape(8, 3),
+            "data_rows": np.random.default_rng(4).standard_normal((16, 3)).astype(np.float32),
             # optax.adam(3e-3): no weight decay, b2 0.999, no clipping, constant lr
             "grpo_opt_kw": dict(lr=3e-3, weight_decay=0.0, b2=0.999, grad_clip=float("inf"),
                                 warmup_steps=0, total_steps=10**9)}
@@ -235,6 +236,34 @@ def test_batch_rows_land_where_jax_puts_them(run):
         shard, = [s for s in arr.addressable_shards if s.device.id == rank]
         np.testing.assert_array_equal(got["local"], np.asarray(shard.data))
         assert got["raised"] is not None and "does not divide" in got["raised"]
+
+
+def test_iter_torch_batches_shards_where_iter_jax_batches_puts_them(run):
+    """``iter_torch_batches(sharding=(mesh, placements))`` on dp2 x fsdp2: each
+    rank holds, of every batch, the rows of the shard that
+    ``ray_tpu.data``'s ``iter_jax_batches(sharding=NamedSharding(...))`` puts
+    on the device at its mesh coordinate."""
+    import ray_tpu
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from ray_tpu import data as jrd
+
+    group, _, inputs = run
+    sharding = NamedSharding(_jmesh(dp=2, fsdp=2), P(("dp", "fsdp")))
+    if ray_tpu.is_initialized():
+        ray_tpu.shutdown()
+    ray_tpu.init(num_cpus=2)
+    try:
+        want = list(jrd.from_numpy({"x": inputs["data_rows"]}).iter_jax_batches(
+            batch_size=8, sharding=sharding))
+    finally:
+        ray_tpu.shutdown()
+    assert len(want) == 2
+    for rank in range(ranks.WORLD):
+        got = group.value("data_iter_sharded", rank)
+        assert len(got) == len(want)
+        for local, batch in zip(got, want):
+            shard, = [s for s in batch["x"].addressable_shards if s.device.id == rank]
+            np.testing.assert_array_equal(local, np.asarray(shard.data))
 
 
 def test_sharded_factory_holds_the_unsharded_init(run):

@@ -551,6 +551,27 @@ def batch_shards(inputs):
 
 
 @case
+def data_iter_sharded(inputs):
+    """iter_torch_batches(sharding=(mesh, placements)) on dp2 x fsdp2 over a
+    Dataset of ``data_rows`` (every rank runs its own in-process runtime and
+    reads the whole dataset): this rank's rows of each batch."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.parallel.mesh import MeshConfig, batch_sharding_spec, make_mesh
+    from ray_tpu_torch.parallel.sharding import spec_placements
+
+    mesh = make_mesh(MeshConfig(dp=2, fsdp=2), device_type=DEVICE)
+    pl = spec_placements(mesh, batch_sharding_spec())
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        ds = rd.from_numpy({"x": inputs["data_rows"]})
+        return [b["x"].to_local() for b in ds.iter_torch_batches(
+            batch_size=8, sharding=(mesh, pl), device=DEVICE)]
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+@case
 def llama_factory_fsdp2_tp2(inputs):
     """make_train_state_factory(mesh=...) from seed 0 against the unsharded
     factory from seed 0: the largest difference of any parameter or moment."""
