@@ -123,6 +123,27 @@ Phases, all of them on every run, in this order:
            K1', K2, K3 a step; the first 3 losses bit-equal to the same
            batches fed directly; one 2-worker GpuTrainer(datasets=...) run
            on CPU workers counting rows.
+  cluster  the port's cluster runtime (ray_tpu_torch.cluster: a GCS, a node
+           agent and worker processes) on the card: (a) the head agent
+           counts the card itself (GPU equal to torch.cuda.device_count()),
+           the native shm arena is live; GCS, agent and first-worker
+           seconds; (b) a num_gpus=1 task sees CUDA_VISIBLE_DEVICES=0 and
+           computes on cuda, a CPU task sees no card, neither process holds
+           the JAX package; a 256 MB bf16 CUDA tensor put by the driver is
+           read on the card by a GPU task, put again and read back by the
+           driver bit-equal, GB/s each way; (c) a SPREAD num_gpus=1 task
+           placed by a line-JSON external policy server (its own small
+           cluster); (d) serve_app's LLMDeployment (llama_1b, seed-0
+           weights drawn in the replica) through serve.run on a replica
+           that is a worker process: serve_app's 4 prompts give (a)'s
+           tokens, its 64 requests with the replica's own launch counts
+           exact against its prefill programs and decode ticks, req/s, TTFT
+           and latency beside serve_app's; (e) the runtime phase's llama_1b
+           loop (B8 S2048, 3 + 5 steps) in GpuTrainer whose TrainWorker is a
+           worker process: losses bit-equal to the runtime phase's direct
+           run, K1', K2, K3 22 launches each a step (counted in that
+           process, reported through train.report), ms a step beside
+           direct; each process's peak max_memory_allocated.
 
 Every launch check also requires attention_plain == paged_attention_plain
 == 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version,
@@ -133,11 +154,13 @@ last line is {"ok": true, "device": {...}} only when every phase passed. Any
 failure exits non-zero and prints no result. Each kernel's launches come
 from the phase whose path runs it (serve: flash_fwd, paged_attention; train:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv; the latter three also carry
-launches_vit, launches_mesh, launches_runtime and launches_data, from the
-vit and mesh phases' timed steps, the runtime phase's first GpuTrainer run
-and the data phase's steps; the first two also carry launches_serve_app,
-from the serve_app phase's 64 requests, and launches_c5, from the c5
-phase's bf16 engines; the CUDA-core kernels' launches come from the c5
+launches_vit, launches_mesh, launches_runtime, launches_data and
+launches_cluster, from the vit and mesh phases' timed steps, the runtime
+phase's first GpuTrainer run, the data phase's steps and the cluster
+phase's TrainWorker process; the first two also carry launches_serve_app,
+from the serve_app phase's 64 requests, launches_c5, from the c5 phase's
+bf16 engines, and launches_cluster, from the cluster phase's replica
+process; the CUDA-core kernels' launches come from the c5
 phase's fp32 and D256 engines and its fp32 train steps). paged_attention's
 entry also carries the c5 phase's widened shapes, its keys suffixed
 _g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
@@ -156,7 +179,7 @@ from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh", "runtime",
-          "serve_app", "rl_platform", "c5", "data")
+          "serve_app", "rl_platform", "c5", "data", "cluster")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -1682,6 +1705,9 @@ def _runtime_trainer(ctx, rt, torch, tmp):
           flush=True)
     require(worst <= RUNTIME_LOSS_RTOL, f"runtime (c): trainer losses differ by {worst}")
     ctx["runtime_launches"] = runs[1]["launches"]
+    # the cluster phase's trainer is held against the first direct run
+    ctx["runtime_direct"] = {"losses": runs[0]["losses"], "median_ms": step_med["direct"],
+                             "median_trainer_ms": step_med["trainer"]}
     return {"runs": runs, "bit_equal": bit_equal, "max_rel_loss": worst,
             "median_period_ms": med, "median_step_ms": step_med}
 
@@ -1906,6 +1932,8 @@ def phase_serve_app(ctx):
     print("serve_app (e): serve.shutdown() and ray_tpu_torch.shutdown(): no engine thread and "
           "no control loop alive", flush=True)
     ctx["serve_app"] = out
+    # the cluster phase sends the same prompts and expects (a)'s tokens
+    ctx["serve_app_prompts"] = {"prompts": prompts, "singles": singles, "want": want}
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2700,6 +2728,420 @@ def phase_data(ctx):
     ctx["data_launches"] = launches
 
 
+# --------------------------------------------------------------------------- #
+# cluster: the multi-process runtime (GCS, node agent, worker processes)
+# --------------------------------------------------------------------------- #
+CLUSTER_TENSOR_BYTES = 256 * 1024 * 1024  # (b)'s bf16 tensor through the store
+
+
+def _cluster_policy_server():
+    """A line-JSON external placement policy (the protocol of
+    core/gcs/external_policy.py, as tests/test_cluster_external_policy.py
+    serves it): places every request on the first node it was told of and
+    records every batch."""
+    import json as _json
+    import socket
+    import threading
+
+    state = {"nodes": [], "batches": [], "lock": threading.Lock()}
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    sock.listen(4)
+
+    def serve():
+        try:
+            conn, _ = sock.accept()
+        except OSError:
+            return
+        buf = b""
+        while True:
+            try:
+                data = conn.recv(65536)
+            except OSError:
+                return
+            if not data:
+                return
+            buf += data
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                msg = _json.loads(line)
+                with state["lock"]:
+                    if msg["op"] == "add_node":
+                        state["nodes"].append(msg["node_id"])
+                    elif msg["op"] == "schedule":
+                        state["batches"].append(msg)
+                        pin = state["nodes"][0] if state["nodes"] else None
+                        conn.sendall((_json.dumps({"batch_id": msg["batch_id"], "placements":
+                                                   [pin for _ in msg["requests"]]}) + "\n").encode())
+
+    threading.Thread(target=serve, daemon=True, name="policy-server").start()
+    return sock, state
+
+
+def _cluster_workers(ctx, rt, torch, out):
+    """cluster (b): a GPU task sees one card and computes on it, a CPU task
+    sees none, a bf16 CUDA tensor through the store both ways."""
+    @rt.remote(num_gpus=1)
+    def gpu_probe():
+        import os
+        import sys
+
+        import torch
+
+        a = torch.randn(1024, 1024, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "count": torch.cuda.device_count(), "name": torch.cuda.get_device_name(0),
+                "device": str((a @ a).device), "sum": float((a @ a).float().sum()),
+                "jax_package": sorted({m.split(".")[0] for m in sys.modules}
+                                      & {"ray_tpu", "jax"})}
+
+    @rt.remote
+    def cpu_probe():
+        import os
+        import sys
+
+        import torch
+
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "cuda": torch.cuda.is_available(),
+                "jax_package": sorted({m.split(".")[0] for m in sys.modules}
+                                      & {"ray_tpu", "jax"})}
+
+    t0 = time.perf_counter()
+    g = rt.get(gpu_probe.remote(), timeout=300)
+    gpu_first_s = time.perf_counter() - t0
+    c = rt.get(cpu_probe.remote(), timeout=300)
+    a = torch.randn(1024, 1024, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    want_sum = float((a @ a).float().sum())
+    print(f"cluster (b) on {ctx['card']} ({ctx['smi']}): num_gpus=1 task (first call "
+          f"{gpu_first_s:.3f} s): "
+          f"CUDA_VISIBLE_DEVICES={g['visible']!r}, {g['count']} card ({g['name']}), result on "
+          f"{g['device']}, sum equal to the driver's {g['sum'] == want_sum}; CPU task: "
+          f"CUDA_VISIBLE_DEVICES={c['visible']!r}, cuda available {c['cuda']}; "
+          f"JAX package in the workers {g['jax_package']} {c['jax_package']}", flush=True)
+    require(g["visible"] == "0" and g["count"] == 1 and g["device"].startswith("cuda")
+            and g["name"] == ctx["card"] and g["sum"] == want_sum,
+            f"cluster (b): the GPU task saw {g}")
+    require(c["visible"] == "" and c["cuda"] is False, f"cluster (b): the CPU task saw {c}")
+    require(not g["jax_package"] and not c["jax_package"],
+            "cluster (b): a worker process loaded the JAX package")
+
+    @rt.remote(num_gpus=1)
+    def gpu_roundtrip(boxed):
+        import time
+
+        import torch
+
+        t0 = time.perf_counter()
+        x = rt.get(boxed[0])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = rt.put(x)
+        put_s = time.perf_counter() - t0
+        return {"device": str(x.device), "dtype": str(x.dtype), "load_s": load_s,
+                "put_s": put_s, "ref": [ref]}
+
+    n = CLUSTER_TENSOR_BYTES // 2
+    x = torch.randn(n, device="cuda", generator=torch.Generator("cuda").manual_seed(4)).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rt.put(x)
+    put_s = time.perf_counter() - t0
+    r = rt.get(gpu_roundtrip.remote([ref]), timeout=300)
+    t0 = time.perf_counter()
+    back = rt.get(r["ref"][0], timeout=300)
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    equal = (back.device.type == "cuda" and back.dtype == torch.bfloat16
+             and torch.equal(back.view(torch.int16), x.view(torch.int16)))
+    gbs = {"driver_put": CLUSTER_TENSOR_BYTES / put_s / 1e9,
+           "task_get": CLUSTER_TENSOR_BYTES / r["load_s"] / 1e9,
+           "task_put": CLUSTER_TENSOR_BYTES / r["put_s"] / 1e9,
+           "driver_get": CLUSTER_TENSOR_BYTES / get_s / 1e9}
+    print(f"cluster (b) on {ctx['card']} ({ctx['smi']}): a {CLUSTER_TENSOR_BYTES >> 20} MB bf16 "
+          f"CUDA tensor, driver -> store -> GPU task ({r['device']}, {r['dtype']}) -> store -> "
+          f"driver: bit-equal {equal}; GB/s driver put (card to shared memory) "
+          f"{gbs['driver_put']:.3f}, task get (shared memory to card) {gbs['task_get']:.3f}, "
+          f"task put {gbs['task_put']:.3f}, driver get {gbs['driver_get']:.3f}", flush=True)
+    require(equal and r["device"].startswith("cuda"),
+            "cluster (b): the tensor did not come back bit-equal on the card")
+    out["b"] = {"gpu_first_call_s": gpu_first_s, "gb_per_s": gbs,
+                "put_s": put_s, "get_s": get_s, "task_load_s": r["load_s"],
+                "task_put_s": r["put_s"]}
+    del x, back, r, ref
+
+
+def _cluster_policy(ctx, rt, Cluster, out):
+    """cluster (c): a SPREAD num_gpus=1 task placed by an external policy."""
+    from ray_tpu_torch.core.resources import SpreadSchedulingStrategy
+
+    sock, state = _cluster_policy_server()
+    os.environ["RAY_TPU_EXTERNAL_SCHEDULER_ADDRESS"] = f"127.0.0.1:{sock.getsockname()[1]}"
+    try:
+        pc = Cluster(initialize_head=True, head_node_args={"num_cpus": 2})
+    finally:
+        os.environ.pop("RAY_TPU_EXTERNAL_SCHEDULER_ADDRESS", None)
+    try:
+        rt.init(address=pc.gcs_address)
+
+        @rt.remote(num_gpus=1)
+        def where():
+            return os.environ["RAY_TPU_NODE_ID"], os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        node, visible = rt.get(where.options(scheduling_strategy=SpreadSchedulingStrategy())
+                               .remote(), timeout=300)
+        with state["lock"]:
+            gpu_batches = [b for b in state["batches"]
+                           if any((q.get("resources") or {}).get("GPU") == 1
+                                  for q in b["requests"])]
+            nodes = list(state["nodes"])
+        print(f"cluster (c) external policy: saw nodes {[n[:8] for n in nodes]}, "
+              f"{len(state['batches'])} batches, {len(gpu_batches)} carrying GPU: 1; the SPREAD "
+              f"num_gpus=1 task ran on {node[:8]} with CUDA_VISIBLE_DEVICES={visible!r}",
+              flush=True)
+        require(gpu_batches and node == nodes[0] and visible == "0",
+                f"cluster (c): the policy did not place the GPU task: {state['batches']}")
+        out["c"] = {"batches": len(state["batches"]), "gpu_batches": len(gpu_batches)}
+    finally:
+        rt.shutdown()
+        pc.shutdown()
+        sock.close()
+
+
+def _cluster_llm_class():
+    """The serve_app deployment, with its replica's launch counts and peak
+    memory readable through the handle: they live in the replica's process.
+    Defined in a function, so cloudpickle sends it by value."""
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    class CountedLLM(LLMDeployment):
+        def reset_counts(self):
+            from ray_tpu_torch import _kernels
+
+            _kernels.reset_counts()
+            return True
+
+        def launch_counts(self):
+            from ray_tpu_torch import _kernels
+
+            return dict(_kernels.launch_counts)
+
+        def process(self):
+            import sys
+
+            import torch
+
+            return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "jax_package": sorted({m.split(".")[0] for m in sys.modules}
+                                          & {"ray_tpu", "jax"})}
+
+    return CountedLLM
+
+
+def _cluster_serve(ctx, rt, out):
+    """cluster (d): llama_1b served through serve.run from a GPU replica that
+    is a worker process of its own."""
+    from ray_tpu_torch import serve
+
+    L = _llama_1b().num_layers
+    pr = ctx["serve_app_prompts"]
+    n_req, max_tokens = SERVE_APP_REQUESTS, SERVE_APP_TOKENS
+    t0 = time.perf_counter()
+    # no params: the replica draws llama_init(seed 0) on its card, the
+    # weights serve_app (a) drew in this process
+    app = (serve.deployment(_cluster_llm_class(), name="llm")
+           .options(ray_actor_options={"num_gpus": 1}, max_ongoing_requests=n_req)
+           .bind(**SERVE_APP_KW))
+    handle = serve.run(app, http=False)
+    try:
+        deploy_s = time.perf_counter() - t0
+        got = [handle.generate.remote({"tokens": p, "max_tokens": max_tokens, "timeout": 600})
+               .result(timeout=600)["tokens"] for p in pr["singles"]]
+        print(f"cluster (d) on {ctx['card']} ({ctx['smi']}): serve.run, replica in its own "
+              f"process (ready in {deploy_s:.3f} s): "
+              f"{len(got)} prompts one at a time, tokens equal to serve_app (a)'s direct "
+              f"deployment {got == pr['want']}", flush=True)
+        require(got == pr["want"], "cluster (d): tokens through the replica process differ "
+                f"from the direct deployment's: {[g[:8] for g in got]} against "
+                f"{[w[:8] for w in pr['want']]}")
+        s0 = handle.engine_stats.remote().result(timeout=60)
+        handle.reset_counts.remote().result(timeout=60)
+        results, ends, t0 = _run_load(
+            lambda r: handle.generate.remote(r).result(timeout=600), pr["prompts"], max_tokens)
+        counts = handle.launch_counts.remote().result(timeout=60)
+        s1 = handle.engine_stats.remote().result(timeout=60)
+        proc = handle.process.remote().result(timeout=60)
+    finally:
+        serve.shutdown()
+    fig = _load_figures(results, ends, t0)
+    for r in results:
+        require(len(r["tokens"]) == max_tokens,
+                f"cluster (d): a request returned {len(r['tokens'])} tokens")
+    programs = s1["prefill_programs"] - s0["prefill_programs"]
+    ticks = s1["decode_steps"] - s0["decode_steps"]
+    require_no_plain(counts, "cluster (d)")
+    require(counts.get("flash_fwd") == L * programs and counts.get("paged_attention") == L * ticks
+            and programs > 0 and ticks > 0,
+            f"cluster (d): the replica launched {counts} against {programs} prefill programs and "
+            f"{ticks} decode ticks of {L} layers")
+    require(proc["pid"] != os.getpid() and proc["visible"] == "0" and not proc["jax_package"],
+            f"cluster (d): the replica's process {proc}")
+    launches = {n: counts.get(n, 0) for n in ("flash_fwd", "paged_attention")}
+    sa = ctx["serve_app"]
+    print(f"cluster (d) on {ctx['card']} ({ctx['smi']}): {n_req} requests together through "
+          f"the handle to the replica process: {_fmt_load(fig)}; its launches {launches} "
+          f"({programs} prefill programs, {ticks} decode ticks), plain 0; replica peak "
+          f"max_memory_allocated {proc['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    print(f"cluster (d) beside the in-process runtime (serve_app): through serve "
+          f"{sa['serve']['req_per_s']:.3f} req/s, TTFT p50 {sa['serve']['p50_ttft_s'] * 1e3:.1f} "
+          f"ms, latency p50 {sa['serve']['p50_latency_s'] * 1e3:.1f} ms; called directly "
+          f"{sa['direct']['req_per_s']:.3f} req/s, TTFT p50 "
+          f"{sa['direct']['p50_ttft_s'] * 1e3:.1f} ms, latency p50 "
+          f"{sa['direct']['p50_latency_s'] * 1e3:.1f} ms", flush=True)
+    out["d"] = {"deploy_s": deploy_s, "serve": fig, "launches": launches,
+                "prefill_programs": programs, "decode_ticks": ticks,
+                "replica_peak_bytes": proc["peak_bytes"]}
+    return launches
+
+
+def _cluster_train(ctx, rt, tmp, out):
+    """cluster (e): the runtime phase's llama_1b loop in GpuTrainer, whose
+    one TrainWorker is a worker process on the card."""
+    from ray_tpu_torch.train import GpuTrainer, RunConfig, ScalingConfig
+
+    L = _llama_1b().num_layers
+    want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    n = RUNTIME_WARMUP + RUNTIME_STEPS
+
+    def train_fn(config):
+        import os
+        import sys
+
+        import torch
+
+        from ray_tpu_torch import train
+
+        def report(rec):
+            rec.update(pid=os.getpid(), visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       jax_package=sorted({m.split(".")[0] for m in sys.modules}
+                                          & {"ray_tpu", "jax"}))
+            train.report(rec)
+
+        _runtime_llama_loop(report)
+
+    t0 = time.perf_counter()
+    r = GpuTrainer(train_fn, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                   run_config=RunConfig(name="cluster_llama_1b", storage_path=tmp)).fit()
+    fit_s = time.perf_counter() - t0
+    require(r.error is None, f"cluster (e): the trainer failed: {r.error!r}")
+    history = r.metrics_history
+    require(len(history) == n, f"cluster (e): {len(history)} reports, expected {n}")
+    for rec in history:
+        require(rec["launches"] == want, f"cluster (e) step {rec['step']} launched "
+                f"{rec['launches']}, expected {want} and no other kernel")
+        require(rec["pid"] != os.getpid() and rec["visible"] == "0" and not rec["jax_package"],
+                f"cluster (e): the train worker's process {rec}")
+    losses = [rec["loss"] for rec in history]
+    direct = ctx["runtime_direct"]
+    bit_equal = losses == direct["losses"]
+    step_ms = statistics.median(rec["ms"] for rec in history[RUNTIME_WARMUP:])
+    launches = {k: v * n for k, v in want.items()}
+    print(f"cluster (e) on {ctx['card']} ({ctx['smi']}): llama_1b, {L} layers, save_attn, B8 "
+          f"S2048, GpuTrainer(num_workers=1, use_gpu) whose TrainWorker is a process of its "
+          f"own, {RUNTIME_WARMUP} + {RUNTIME_STEPS} steps, fit in {fit_s:.3f} s: losses "
+          f"bit-equal to the runtime phase's direct run {bit_equal}; median {step_ms:.3f} ms a "
+          f"step (step and loss read) beside direct {direct['median_ms']:.3f} and the "
+          f"in-process trainer {direct['median_trainer_ms']:.3f}; launches {launches} "
+          f"({L} of each a step); train worker peak max_memory_allocated "
+          f"{history[-1]['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    require(bit_equal, f"cluster (e): losses {losses} differ from direct {direct['losses']}")
+    out["e"] = {"fit_s": fit_s, "losses": losses, "bit_equal": bit_equal,
+                "median_step_ms": step_ms, "launches": launches,
+                "worker_peak_bytes": history[-1]["peak_bytes"]}
+    return launches
+
+
+def phase_cluster(ctx):
+    """The port's cluster runtime on the card: (a) a Cluster whose head
+    counts the card itself, with the native arena; (b) GPU and CPU worker
+    processes and a CUDA tensor through the store; (c) a SPREAD GPU task
+    placed by an external policy; (d) llama_1b served from a replica
+    process; (e) llama_1b trained in a TrainWorker process."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.rpc import SyncRpcClient
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if rt.is_initialized():
+        rt.shutdown()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    t0 = time.perf_counter()
+    c = Cluster(initialize_head=False)
+    gcs_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        head = c.add_node(is_head=True, num_cpus=8)
+        agent_s = time.perf_counter() - t0
+        rt.init(address=c.gcs_address)
+        res = rt.cluster_resources()
+        agent = SyncRpcClient(head.address)
+        try:
+            store = agent.call("node_info")["store"]
+        finally:
+            agent.close()
+
+        @rt.remote
+        def first():
+            return os.getpid()
+
+        t0 = time.perf_counter()
+        rt.get(first.remote(), timeout=300)
+        worker_s = time.perf_counter() - t0
+        labels = rt.nodes()[0]["Labels"]
+        print(f"cluster (a) on {ctx['card']} ({ctx['smi']}): GCS up in {gcs_s:.3f} s, head "
+              f"agent in {agent_s:.3f} s, first worker's task in {worker_s:.3f} s; the agent "
+              f"counted GPU {res.get('GPU')} (torch.cuda.device_count() "
+              f"{torch.cuda.device_count()}), labels {labels}; object store backend "
+              f"{store.get('backend')}", flush=True)
+        require(res.get("GPU") == torch.cuda.device_count(),
+                f"cluster (a): the agent counted {res.get('GPU')} GPUs, torch "
+                f"{torch.cuda.device_count()}")
+        require(store.get("backend") == "arena",
+                f"cluster (a): the native arena is not live: {store}")
+        out["a"] = {"gcs_s": gcs_s, "agent_s": agent_s, "first_worker_s": worker_s,
+                    "GPU": res.get("GPU"), "labels": labels, "backend": store.get("backend")}
+        _cluster_workers(ctx, rt, torch, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rt.shutdown()
+        _cluster_policy(ctx, rt, Cluster, out)
+        rt.init(address=c.gcs_address)
+        ctx["cluster_serve_launches"] = _cluster_serve(ctx, rt, out)
+        ctx["cluster_train_launches"] = _cluster_train(ctx, rt, tmp, out)
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        c.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["driver_peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"cluster on {ctx['card']} ({ctx['smi']}): the driver's peak max_memory_allocated "
+          f"in this phase {out['driver_peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    ctx["cluster"] = out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -2749,10 +3191,14 @@ def main() -> int:
             entry["launches_runtime"] = ctx["runtime_launches"].get(entry["name"], 0)
             # and in the data phase's 21 ViT-L steps fed by iter_torch_batches
             entry["launches_data"] = ctx["data_launches"].get(entry["name"], 0)
+            # and in the cluster phase's TrainWorker process (8 llama_1b steps)
+            entry["launches_cluster"] = ctx["cluster_train_launches"].get(entry["name"], 0)
         elif key in ("k1", "k4"):  # in the serve_app phase's 64 requests through serve
             entry["launches_serve_app"] = ctx["serve_app_launches"].get(entry["name"], 0)
             # and in the c5 phase's bf16 engines (groups 1 and 8; K4 also at D256)
             entry["launches_c5"] = ctx["c5_bf16_launches"].get(entry["name"], 0)
+            # and in the cluster phase's replica process (64 requests)
+            entry["launches_cluster"] = ctx["cluster_serve_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -2765,7 +3211,7 @@ def main() -> int:
               "runtime": ctx["runtime"], "serve_app": ctx["serve_app"],
               "rl_platform": ctx["rl_platform"], "c5": ctx["c5"],
               "data": {k: v for k, v in ctx["data"].items() if k != "per_op_stats"},
-              "data_per_op_stats": ctx["data"].get("per_op_stats")}
+              "data_per_op_stats": ctx["data"].get("per_op_stats"), "cluster": ctx["cluster"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

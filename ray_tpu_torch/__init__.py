@@ -1,6 +1,8 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's models (Llama, ViT),
 serving, training and RL (GRPO, PPO) paths, its mesh and sharding, and its
-in-process task/actor/object runtime with Train and Tune on it.
+task/actor/object runtime (in-process, or a multi-process cluster of GCS,
+node agents and worker processes: ``ray_tpu_torch.cluster``) with Train,
+Tune, Serve and Data on it.
 
 Mirrors ``ray_tpu``'s module paths and public names (``ops``, ``models``,
 ``serve.llm``, ``train``, ``tune``, ``rl``, ``parallel``, ``core``, ``util``
@@ -28,9 +30,19 @@ from ray_tpu_torch.core.remote_function import RemoteFunction
 from ray_tpu_torch.core.streaming import ObjectRefGenerator
 from ray_tpu_torch import exceptions
 from ray_tpu_torch.profiling import profile
-from ray_tpu_torch.train.step import (AdamW, AdamWConstant, AdamWState, TrainState, adamw,
-                                      default_optimizer, make_eval_step, make_train_state_factory,
-                                      make_train_step, train_state_from_jax)
+
+# The train step's names load on first use, through ``train``'s own
+# PEP 562 hook: they import torch, which takes seconds, and the cluster's
+# daemons (GCS, node agents) and its CPU workers import this package
+# without needing it.
+from ray_tpu_torch import train
+
+
+def __getattr__(name):
+    if name in train.STEP_NAMES:
+        return getattr(train, name)
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
 
 __all__ = ["AdamW", "AdamWConstant", "AdamWState", "ActorClass", "ActorHandle", "ObjectRef",
            "ObjectRefGenerator", "RemoteFunction", "TrainState", "adamw", "available_resources",

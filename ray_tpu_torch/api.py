@@ -3,7 +3,8 @@ ray_tpu.api).
 
 Reference capability: python/ray/_private/worker.py:1260 (init), :2617 (get),
 :2785 (put), :2850 (wait), :3031 (kill), :3062 (cancel), :3239 (remote) —
-over the in-process CoreRuntime backend, with ``GPU`` as the accelerator.
+over the port's two CoreRuntime backends (in-process, and a driver
+connected to a cluster), with ``GPU`` as the accelerator.
 """
 
 from __future__ import annotations
@@ -35,13 +36,14 @@ def init(
     log_to_driver: bool = True,
     _node_config: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
-    """Start the in-process ray_tpu_torch runtime.
+    """Start (or connect to) a ray_tpu_torch runtime.
 
     - ``address=None`` / ``"local"``: in-process LocalRuntime, with
       ``num_gpus`` cards (``None``: ``torch.cuda.device_count()``).
-    - any other address, including one exported in ``RAY_TPU_ADDRESS``,
-      raises ``NotImplementedError``: connecting to a cluster head is the
-      cluster-runtime slice of the port, and nothing silently runs locally.
+    - ``address="host:port"`` (a ``Cluster``'s ``gcs_address``, or one
+      exported in ``RAY_TPU_ADDRESS``), optionally ``client://host:port``:
+      connect as a driver to a running cluster of the port
+      (``ray_tpu_torch.cluster``); the cluster's nodes own the resources.
     """
     with _init_lock:
         if global_worker() is not None:
@@ -50,26 +52,27 @@ def init(
             raise RuntimeError("ray_tpu_torch.init() called twice; pass ignore_reinit_error=True")
         from ray_tpu_torch.core.config import config
 
-        if address is None:
-            # submitted jobs (and `ray_tpu start` shells) export the cluster
-            # address; the reference's init() then auto-connects
-            address = os.environ.get("RAY_TPU_ADDRESS") or None
-        if address not in (None, "local"):
-            raise NotImplementedError(
-                f"ray_tpu_torch.init(address={address!r}): only the in-process runtime "
-                "(address None or 'local') is ported; connecting to a cluster comes with "
-                "the cluster-runtime slice of the port")
         config.apply_overrides(system_config)
-        from ray_tpu_torch.core.local_runtime import LocalRuntime
+        if address is None:
+            # submitted jobs export the cluster address; init() then
+            # auto-connects like the reference's RAY_ADDRESS behavior
+            address = os.environ.get("RAY_TPU_ADDRESS") or None
+        if address in (None, "local"):
+            from ray_tpu_torch.core.local_runtime import LocalRuntime
 
-        runtime = LocalRuntime(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources)
-        worker = Worker(runtime, JobID.from_int(1), node_id=runtime.node_id, is_driver=True)
+            runtime = LocalRuntime(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources)
+            worker = Worker(runtime, JobID.from_int(1), node_id=runtime.node_id, is_driver=True)
+        else:
+            from ray_tpu_torch.core.cluster_runtime import connect_driver
+
+            runtime, worker = connect_driver(address, namespace=namespace,
+                                             log_to_driver=log_to_driver)
         worker.namespace = namespace or "default"
         runtime_ref = runtime
         worker.ref_counter.set_on_zero(lambda oid: runtime_ref.release(oid))
         set_global_worker(worker)
         return {
-            "address": "local",
+            "address": address or "local",
             "node_id": worker.node_id.hex(),
             "namespace": worker.namespace,
         }

@@ -6,7 +6,7 @@ python/ray/includes/object_ref.pxi + ownership model in
 src/ray/core_worker/reference_count.h): every ref knows its owner (the worker
 that created it), participates in distributed reference counting via
 ``__del__`` → runtime release, is awaitable in asyncio, and can be captured
-inside other objects (borrowing).
+inside other objects (borrowing, see core/serialization.py).
 """
 
 from __future__ import annotations
@@ -104,6 +104,7 @@ class ObjectRef:
                 pass
 
     def __reduce__(self):
-        # Plain pickling keeps the id but cannot maintain refcounts; the
-        # in-process runtime never pickles a ref (objects stay in-process).
+        # Plain pickling (outside the runtime's serializer) keeps the id but
+        # cannot maintain refcounts; the runtime serializer in
+        # core/serialization.py handles borrowing.
         return (ObjectRef, (self.id, self.owner_hint))

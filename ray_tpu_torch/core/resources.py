@@ -4,9 +4,10 @@ ray_tpu.core.resources).
 Reference capability: src/ray/common/scheduling/ (ResourceRequest,
 ResourceSet) + python/ray/util/scheduling_strategies.py. ``GPU`` cards are
 the accelerator resource, alongside CPU/memory, where the JAX package
-counts ``TPU`` chips. Its slice labels and ``SliceSchedulingStrategy``
-(ICI-domain gang placement) have no counterpart on one GPU host; node
-labels for GPUs come with the cluster runtime.
+counts ``TPU`` chips. Its ``SliceSchedulingStrategy`` (ICI-domain gang
+placement) has no counterpart; a GPU node's labels (its card's name, its
+host as the slice) come from ``core/accelerators.py``, and the GCS keeps a
+``STRICT_PACK`` gang on one slice.
 """
 
 from __future__ import annotations

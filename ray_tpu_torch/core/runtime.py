@@ -1,15 +1,16 @@
 """CoreRuntime: the backend interface behind the public API (own copy of
 ray_tpu.core.runtime).
 
-The JAX package has two implementations; the port has the first so far:
+Two implementations, as in the JAX package:
 
 - ``LocalRuntime`` (core/local_runtime.py): in-process — threads for tasks,
   dedicated threads/event-loops for actors, a zero-copy in-process object
   table. CUDA tensors passed between tasks stay on the device, the same
   tensor with the same storage. This is also the test backend.
-- The cluster runtime (multi-process/multi-node: control service, per-node
-  agents with worker pools, a shared-memory object plane, lease-based task
-  submission) is a later slice of the port.
+- ``ClusterRuntime`` (core/cluster_runtime.py): multi-process/multi-node —
+  control service (GCS-equivalent), per-node agents with worker pools (a
+  GPU worker sees its cards only), a shared-memory object plane (a CUDA
+  tensor travels as host bytes), lease-based task submission.
 
 The public API (ray_tpu_torch/api.py) only ever talks to this interface.
 """

@@ -7,7 +7,7 @@ Capability-equivalent of the reference's CoreWorker + ReferenceCounter
 every process that touches the API — driver or worker — holds exactly one
 ``Worker`` with:
 
-- the runtime backend (the in-process LocalRuntime),
+- the runtime backend (the in-process LocalRuntime or a cluster client),
 - a reference counter tracking local refs, borrowed refs and
   pending-task argument refs; when an object's count reaches zero the
   runtime is told to release it (eviction eligibility / owner bookkeeping),
@@ -19,11 +19,12 @@ from __future__ import annotations
 
 import threading
 from collections import defaultdict
-from typing import Dict, Optional, TYPE_CHECKING
+from typing import Dict, List, Optional, TYPE_CHECKING
 
 from ray_tpu_torch.core.ids import ActorID, JobID, NodeID, ObjectID, TaskID, WorkerID
 
 if TYPE_CHECKING:
+    from ray_tpu_torch.core.object_ref import ObjectRef
     from ray_tpu_torch.core.runtime import CoreRuntime
 
 
@@ -62,6 +63,13 @@ class ReferenceCounter:
                     fire = True
         if fire and self._on_zero is not None:
             self._on_zero(oid)
+
+    def live_ids(self) -> List[str]:
+        """Hex ids of every object this process still holds (local refs or
+        pending submissions) — what a GCS-restart catch-up re-asserts."""
+        with self._lock:
+            return [oid.hex() for oid in
+                    set(self._local) | set(self._submitted)]
 
     def add_submitted(self, oid: ObjectID) -> None:
         with self._lock:
@@ -260,3 +268,14 @@ def set_global_worker(worker: Optional[Worker]) -> None:
     if worker is not None:
         _ensure_drain_thread()
 
+
+def maybe_register_borrowed_ref(ref: "ObjectRef") -> None:
+    """Called by the deserializer when an ObjectRef is reconstructed out of a
+    containing object — the borrowing hook (reference:
+    reference_count.h AddBorrowedObject)."""
+    # ObjectRef.__init__ already added the local ref with borrowed=True when a
+    # worker exists; nothing further for the in-process plane. The cluster
+    # runtime additionally notifies the owner (see core/cluster_runtime.py).
+    w = _global_worker
+    if w is not None and hasattr(w.runtime, "on_borrowed_ref"):
+        w.runtime.on_borrowed_ref(ref)

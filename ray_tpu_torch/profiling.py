@@ -4,9 +4,10 @@ Reference capability: src/ray/core_worker/profile_event.{h,cc} +
 python/ray/_private/profiling.py:20-40 — `with ray.profiling.profile("x"):`
 inside a task records a span shipped to the observability backend and
 rendered by `ray timeline`. Here (own copy of ray_tpu.profiling): spans
-buffer in the process and, in the in-process runtime, flush into a local
-span log when the task finishes (read back with ``local_spans()``); the JAX
-package's cluster path ships them to the node agent and its timeline.
+buffer in the process; in the in-process runtime they flush into a local
+span log when the task finishes (read back with ``local_spans()``), and in
+a cluster worker they flush to the node agent (one RPC only when profiling
+was used), whose dashboard merges them into the timeline.
 
     import ray_tpu_torch
 

@@ -7,7 +7,9 @@ continuous-batched LLM engine (serve.llm) with a paged KV cache on the card;
 ``ray_actor_options={"num_gpus": 1}`` places its replica on a GPU.
 
 The proxy serves HTTP only: the JAX package's msgpack-RPC ingress
-(``ServeRpcClient``) comes with the port's cluster runtime.
+(``ServeRpcClient``) comes with serve's RPC parts, after the cluster
+runtime. A replica with ``num_gpus=1`` on the cluster runtime is a worker
+process of its own that sees its card only.
 """
 
 from ray_tpu_torch.serve.api import (

@@ -7,8 +7,8 @@ in the "serve" namespace so every driver/worker in the cluster reaches the
 same instance.
 
 ``proxy_location="every_node"`` lists the cluster's nodes through the
-cluster runtime's state API, which the port has not copied yet: it raises
-NotImplementedError until then, and the one proxy runs on the head.
+state API (``util/state.py``), which comes with serve's RPC parts: it
+raises NotImplementedError until then, and the one proxy runs on the head.
 """
 
 from __future__ import annotations
@@ -36,13 +36,13 @@ def start(http_host: str = "127.0.0.1", http_port: int = 8000,
     """Idempotently start the serve instance (controller + proxy actors).
 
     ``proxy_location``: "head" (one proxy on the starting node). The JAX
-    package's "every_node" (one HTTP proxy pinned to each alive node) needs
-    the cluster runtime's node list: it raises NotImplementedError here,
-    before anything starts."""
+    package's "every_node" (one HTTP proxy pinned to each alive node) lists
+    the cluster's nodes through ``util/state.py``, which comes with serve's
+    RPC parts: it raises NotImplementedError here, before anything starts."""
     if http and proxy_location == "every_node":
         raise NotImplementedError(
-            "proxy_location='every_node' lists the nodes through the cluster "
-            "runtime, which the port's cluster-runtime slice brings; until then "
+            "proxy_location='every_node' lists the cluster's nodes through "
+            "util/state.py, which comes with serve's RPC parts; until then "
             "the port runs one proxy on the head")
     if not ray_tpu_torch.is_initialized():
         ray_tpu_torch.init()

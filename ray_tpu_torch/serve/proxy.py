@@ -10,9 +10,9 @@ deployment's __call__ through the pow-2 router.
 
 The JAX package's proxy also listens for msgpack RPC (its gRPC-ingress
 analogue, served by ``core/rpc.py``'s ``RpcServer`` and called through
-``serve.rpc_ingress.ServeRpcClient``). That wire protocol belongs to the
-cluster runtime, which the port has not copied yet; the RPC ingress comes
-with it. Until then ``rpc_address()`` returns None.
+``serve.rpc_ingress.ServeRpcClient``). The port has ``core/rpc.py`` since
+its cluster runtime came, but not the ingress itself (serve's RPC parts are
+the next slice); until then ``rpc_address()`` returns None.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ class ProxyActor:
 
     def rpc_address(self) -> Optional[str]:
         """host:port of the msgpack-RPC ingress listener: None, as the port
-        has no RPC ingress until the cluster runtime is copied."""
+        has no RPC ingress yet (serve's RPC parts are the next slice)."""
         return None
 
     def check_health(self) -> bool:

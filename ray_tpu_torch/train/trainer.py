@@ -16,8 +16,11 @@ torch.distributed where the JAX package calls ``jax.distributed``:
   torn down and restarted from the latest checkpoint (restart-based
   elasticity, matching the reference's semantics).
 
-In the in-process runtime every worker is a thread of one process, so a
-process group spans one worker at most: ``use_torch_distributed`` with more
+On the cluster runtime every ``TrainWorker`` is its own worker process
+(on a GPU worker it sees its cards only), so ``use_torch_distributed`` with
+``num_workers > 1`` forms one process group across the gang. In the
+in-process runtime every worker is a thread of one process, so a process
+group spans one worker at most: there ``use_torch_distributed`` with more
 than one worker raises before any worker starts.
 """
 
@@ -157,6 +160,13 @@ class TrainWorker:
         return True
 
 
+def _runtime_is_in_process() -> bool:
+    from ray_tpu_torch.core.worker import global_worker
+
+    w = global_worker()
+    return w is None or w.runtime.is_local
+
+
 class GpuTrainer:
     """North-star API: GpuTrainer(fn, scaling_config=...).fit()
     (reference: DataParallelTrainer / TorchTrainer; counterpart of
@@ -188,12 +198,14 @@ class GpuTrainer:
         with hyperparameter sweeps). The Tuner's trial actor calls back in
         with ``_tune_session`` set, which runs the gang directly and streams
         per-round metrics to the trial."""
-        if self.use_torch_distributed and self.scaling.num_workers > 1:
+        if (self.use_torch_distributed and self.scaling.num_workers > 1
+                and _runtime_is_in_process()):
             raise ValueError(
                 f"use_torch_distributed=True with num_workers={self.scaling.num_workers}: "
                 "the in-process runtime runs every worker in this process, and one "
-                "process holds one default process group; use num_workers=1, or the "
-                "cluster runtime once it is ported")
+                "process holds one default process group; use num_workers=1, or "
+                "connect to a cluster (ray_tpu_torch.cluster), whose workers are "
+                "processes of their own")
         if _tune_session is None:
             from ray_tpu_torch.tune.tuner import TuneConfig, Tuner
 
@@ -328,11 +340,13 @@ class GpuTrainer:
                 metrics_history=history,
             )
         finally:
+            # every worker at once: destroying a process group can wait for
+            # its peers to destroy theirs
+            try:
+                ray_tpu_torch.get([w.shutdown.remote() for w in workers], timeout=10)
+            except Exception:  # noqa: BLE001 - best effort; the kill follows
+                pass
             for w in workers:
-                try:
-                    ray_tpu_torch.get(w.shutdown.remote(), timeout=10)
-                except Exception:  # noqa: BLE001 - best effort; the kill follows
-                    pass
                 try:
                     ray_tpu_torch.kill(w)
                 except Exception:  # noqa: BLE001

@@ -2,9 +2,9 @@
 exposition (reference capability: src/ray/stats/metric.h + metric_defs.cc and
 python/ray/util/metrics.py → per-node metrics agent → Prometheus scrape).
 
-Single-process registry (own copy of ray_tpu.utils.metrics); the JAX
-package's node agent aggregates worker snapshots, which the port's cluster
-runtime will do when it is ported.
+Single-process registry (own copy of ray_tpu.utils.metrics); the node
+agent aggregates worker snapshots and can serve ``/metrics`` over HTTP when
+``metrics_export_port`` is set.
 """
 
 from __future__ import annotations

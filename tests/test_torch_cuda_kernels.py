@@ -1008,3 +1008,103 @@ def test_c5_engine_on_the_card(dev, dtype, nkv, head_dim):
         finally:
             cpu.stop()
         assert got == want
+
+
+# --------------------------------------------- the cluster runtime on the card
+@pytest.fixture(scope="module")
+def gpu_cluster():
+    """One node of the port's cluster (GCS, agent, worker processes) whose
+    agent counts the card itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the cluster's GPU workers run on it")
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster import Cluster
+
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    c = Cluster(initialize_head=True, head_node_args={"num_cpus": 4})
+    try:
+        ray_tpu_torch.init(address=c.gcs_address)
+        yield c
+    finally:
+        if ray_tpu_torch.is_initialized():
+            ray_tpu_torch.shutdown()
+        c.shutdown()
+
+
+def test_cluster_gpu_task_sees_one_card(gpu_cluster):
+    """A num_gpus=1 task's process sees one card and computes on it; a CPU
+    task's process sees none."""
+    import ray_tpu_torch
+
+    assert ray_tpu_torch.cluster_resources()["GPU"] == torch.cuda.device_count()
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    def gpu():
+        import os
+
+        import torch
+
+        x = torch.ones(4, device="cuda")
+        return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.device_count(), \
+            x.device.type, float(x.sum())
+
+    @ray_tpu_torch.remote
+    def cpu():
+        import os
+
+        import torch
+
+        return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.is_available()
+
+    assert ray_tpu_torch.get(gpu.remote(), timeout=120) == ("0", 1, "cuda", 4.0)
+    assert ray_tpu_torch.get(cpu.remote(), timeout=120) == ("", False)
+
+
+def test_cluster_cuda_tensor_roundtrip(gpu_cluster):
+    """A bf16 CUDA tensor put by the driver reaches a GPU task's process on
+    its card and comes back on the driver's card, bit-equal."""
+    import ray_tpu_torch
+
+    x = torch.randn(1 << 20, device="cuda").to(torch.bfloat16)
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    def echo(t):
+        return t.device.type, t * 1
+
+    where, back = ray_tpu_torch.get(echo.remote(ray_tpu_torch.put(x)), timeout=120)
+    assert where == "cuda" and back.device.type == "cuda" and back.dtype == torch.bfloat16
+    assert torch.equal(back.view(torch.int16), x.view(torch.int16))
+
+
+def test_cluster_gpu_actor_launches_k1(gpu_cluster):
+    """A num_gpus=1 actor (a worker process of its own) runs the prefill
+    attention through K1: one launch in its own counts, and the output
+    within the bf16 tolerance of the plain version."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    class Attn:
+        def run(self):
+            import torch
+
+            from ray_tpu_torch import _kernels
+            from ray_tpu_torch.ops import attention as ta
+
+            g = torch.Generator(device="cuda").manual_seed(7)
+            q, k, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+                       for s in ((2, 256, 16, 128), (2, 256, 4, 128), (2, 256, 4, 128)))
+            before = _kernels.launch_counts["flash_fwd"]
+            out = ta.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            launches = _kernels.launch_counts["flash_fwd"] - before
+            ref = ta.reference_attention(q, k, v, causal=True)
+            bad = ((out.float() - ref.float()).abs()
+                   > 1e-2 + 1.6e-2 * ref.float().abs()).sum().item()
+            return launches, bad, bool(torch.isfinite(out).all())
+
+    a = Attn.remote()
+    try:
+        assert ray_tpu_torch.get(a.run.remote(), timeout=300) == (1, 0, True)
+    finally:
+        ray_tpu_torch.kill(a)

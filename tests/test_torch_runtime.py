@@ -697,17 +697,48 @@ def test_gpu_task_without_a_card_is_infeasible(on_both):
     assert port_result == jax_result and not ran
 
 
-@pytest.mark.parametrize("address", ["10.0.0.1:6379", "cluster://head:6379", "auto"])
-def test_non_local_address_raises(port, address):
-    with pytest.raises(NotImplementedError, match="cluster-runtime slice"):
-        port.init(address=address)
+def _address_with_no_cluster():
+    """host:port on this machine with nothing listening there (a cluster
+    address is only ever tried on localhost here)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+@pytest.fixture
+def short_connect():
+    """Connection attempts give up after 0.5 s (init's system_config), and
+    the override is dropped afterwards."""
+    from ray_tpu_torch.core.config import config
+
+    yield {"rpc_connect_timeout_s": 0.5}
+    config.reset()
+
+
+@pytest.mark.parametrize("scheme", ["", "client://"], ids=["host_port", "client"])
+def test_non_local_address_raises(port, short_connect, scheme):
+    """Any address but None/"local" connects as a driver to a cluster
+    (ray_tpu_torch.cluster): with no cluster there, init raises and nothing
+    silently runs locally."""
+    from ray_tpu_torch.core.rpc import RpcConnectionError
+
+    with pytest.raises(RpcConnectionError, match="cannot connect"):
+        port.init(address=scheme + _address_with_no_cluster(), system_config=short_connect)
     assert not port.is_initialized()
 
 
-def test_address_from_the_environment_raises(port, monkeypatch):
-    monkeypatch.setenv("RAY_TPU_ADDRESS", "10.0.0.1:6379")
-    with pytest.raises(NotImplementedError, match="10.0.0.1:6379"):
-        port.init()
+def test_address_from_the_environment_raises(port, short_connect, monkeypatch):
+    """RAY_TPU_ADDRESS is connected to as init's address, as in the JAX
+    package; with no cluster there init raises, and "local" still starts
+    the in-process runtime."""
+    from ray_tpu_torch.core.rpc import RpcConnectionError
+
+    address = _address_with_no_cluster()
+    monkeypatch.setenv("RAY_TPU_ADDRESS", address)
+    with pytest.raises(RpcConnectionError, match=address):
+        port.init(system_config=short_connect)
     assert not port.is_initialized()
     port.init(address="local", num_cpus=1)
     assert port.is_initialized()
