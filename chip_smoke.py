@@ -144,6 +144,31 @@ Phases, all of them on every run, in this order:
            run, K1', K2, K3 22 launches each a step (counted in that
            process, reported through train.report), ms a step beside
            direct; each process's peak max_memory_allocated.
+  cluster_apps  Serve's RPC ingress and a compiled DAG on a port Cluster of
+           two nodes (the head: 8 CPUs and the card; a CPU-only node whose
+           agent sees no card): (a) ray_tpu_torch.util.state lists both,
+           GPU 1 on the head only, cluster_summary agreeing; (b)
+           serve.start(proxy_location="every_node", http_port=0), then
+           serve_app's LLMDeployment (llama_1b, seed-0 weights drawn in the
+           replica, num_slots=64, decode_chunk=32) on a num_gpus=1 replica:
+           serve_app's 4 prompts through HTTP on each node's proxy and
+           through the CPU node's ServeRpcClient, unary and streamed item by
+           item, all giving serve_app (a)'s tokens; the 64 requests at once
+           through that RPC ingress (req/s, TTFT, latency beside the cluster
+           phase's (d)), the replica's K1 and K4 launches exact against its
+           prefill programs and decode ticks, plain 0; serve.shutdown()
+           gives the card's memory back; (c) `with InputNode() as step:
+           learner.step.bind(maker.make.bind(step))` compiled: a CPU maker
+           on the head (the runtime phase's B8 S2048 batch from seed 0, as
+           numpy) feeding a num_gpus=1 learner (one step of the runtime
+           phase's llama_1b loop a call) over native shared-memory
+           channels; 3 + 5 execute(i): losses bit-equal to the runtime
+           phase's direct run, K1', K2, K3 22 launches each a step in the
+           learner's process, a bf16 CUDA slice of a parameter through the
+           output channel landing on cuda bit-equal to the learner's own
+           after teardown() (a normal actor call); (d) the transfer probe
+           (ray_tpu_torch.bench.measure_object_transfer: 16 MB pulled by a
+           second agent, raw_transfer true, MB/s).
 
 Every launch check also requires attention_plain == paged_attention_plain
 == 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version,
@@ -154,13 +179,15 @@ last line is {"ok": true, "device": {...}} only when every phase passed. Any
 failure exits non-zero and prints no result. Each kernel's launches come
 from the phase whose path runs it (serve: flash_fwd, paged_attention; train:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv; the latter three also carry
-launches_vit, launches_mesh, launches_runtime, launches_data and
-launches_cluster, from the vit and mesh phases' timed steps, the runtime
-phase's first GpuTrainer run, the data phase's steps and the cluster
-phase's TrainWorker process; the first two also carry launches_serve_app,
+launches_vit, launches_mesh, launches_runtime, launches_data,
+launches_cluster and launches_cluster_apps, from the vit and mesh phases'
+timed steps, the runtime phase's first GpuTrainer run, the data phase's
+steps, the cluster phase's TrainWorker process and the cluster_apps
+phase's compiled-DAG learner; the first two also carry launches_serve_app,
 from the serve_app phase's 64 requests, launches_c5, from the c5 phase's
-bf16 engines, and launches_cluster, from the cluster phase's replica
-process; the CUDA-core kernels' launches come from the c5
+bf16 engines, launches_cluster, from the cluster phase's replica process,
+and launches_cluster_apps, from the cluster_apps phase's replica behind the
+RPC ingress; the CUDA-core kernels' launches come from the c5
 phase's fp32 and D256 engines and its fp32 train steps). paged_attention's
 entry also carries the c5 phase's widened shapes, its keys suffixed
 _g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
@@ -179,7 +206,7 @@ from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh", "runtime",
-          "serve_app", "rl_platform", "c5", "data", "cluster")
+          "serve_app", "rl_platform", "c5", "data", "cluster", "cluster_apps")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -3142,6 +3169,350 @@ def phase_cluster(ctx):
     ctx["cluster"] = out
 
 
+# --------------------------------------------------------------------------- #
+# cluster_apps: Serve's RPC ingress on per-node proxies, a compiled DAG
+# --------------------------------------------------------------------------- #
+# the device the replica and the learner compute on, and the learner's model
+# and batch: the serve_app and runtime phases' (a CPU rehearsal swaps them)
+APPS_DEVICE = "cuda"
+APPS_TRAIN = dict(model="llama_1b", batch=8, seq=2048, attention_impl="flash")
+APPS_LEARNER = "cluster_apps_learner"
+
+
+def _apps_maker_class():
+    """(c)'s CPU stage: the runtime phase's token batch from seed 0, as
+    numpy (its data: ``rng.integers(0, vocab, (B, S))`` with rng seed 0, the
+    same batch every step). Defined in a function: sent by value."""
+    class Maker:
+        def __init__(self, vocab_size, batch, seq):
+            import numpy as np
+
+            self.tokens = np.random.default_rng(0).integers(0, vocab_size, (batch, seq))
+
+        def make(self, step):
+            return self.tokens
+
+    return Maker
+
+
+def _apps_learner_class():
+    """(c)'s GPU stage: one step of the runtime phase's llama_1b loop a call
+    (save_attn, default_optimizer, weights from seed 0), returning the loss,
+    the step's ms and launches, and a small bf16 slice of a parameter after
+    the update (a CUDA tensor, through the channel)."""
+    class Learner:
+        def __init__(self, model, attention_impl, device):
+            from ray_tpu_torch.models.llama import LlamaConfig
+            from ray_tpu_torch.train.step import (default_optimizer,
+                                                  make_train_state_factory, make_train_step)
+
+            self.device = device
+            cfg = getattr(LlamaConfig, model)(max_seq_len=2048, remat="save_attn",
+                                              attention_impl=attention_impl)
+            opt = default_optimizer(warmup_steps=10, total_steps=1000)
+            self.state = make_train_state_factory(cfg, opt)(seed=0, device=device)
+            self.step_fn = make_train_step(cfg, opt)
+
+        def param_slice(self):
+            return self.state.params["layers"]["wq"][0, :16, :16].detach().clone()
+
+        def step(self, tokens_np):
+            import torch
+
+            from ray_tpu_torch import _kernels
+
+            tokens = torch.from_numpy(tokens_np.copy()).to(self.device)
+            targets = torch.roll(tokens, -1, dims=1)
+            before = dict(_kernels.launch_counts)
+            t0 = time.perf_counter()
+            self.state, metrics = self.step_fn(self.state, tokens, targets)
+            loss = metrics["loss"].item()  # waits for the step
+            ms = (time.perf_counter() - t0) * 1e3
+            return {"loss": loss, "ms": ms, "slice": self.param_slice(),
+                    "launches": {n: c - before.get(n, 0)
+                                 for n, c in _kernels.launch_counts.items()
+                                 if c != before.get(n, 0)}}
+
+        def process(self):
+            import sys
+
+            import torch
+
+            from ray_tpu_torch.experimental import channel
+
+            return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "native_channel": channel._native_lib() is not None,
+                    "peak_bytes": (torch.cuda.max_memory_allocated()
+                                   if torch.cuda.is_available() else 0),
+                    "jax_package": sorted({m.split(".")[0] for m in sys.modules}
+                                          & {"ray_tpu", "jax"})}
+
+    return Learner
+
+
+def _apps_nodes(ctx, rt, out):
+    """cluster_apps (a): both nodes through the state API."""
+    from ray_tpu_torch.util import state
+
+    nodes = [n for n in state.list_nodes() if n["Alive"]]
+    summary = state.cluster_summary()
+    gpus = {n["NodeID"][:8]: n["Resources"].get("GPU", 0.0) for n in nodes}
+    head = rt.get_runtime_context().get_node_id()
+    total = {}
+    for n in nodes:
+        for k, v in n["Resources"].items():
+            total[k] = total.get(k, 0.0) + v
+    print(f"cluster_apps (a): state.list_nodes() {len(nodes)} alive nodes, GPU by node {gpus} "
+          f"(head {head[:8]}); cluster_summary nodes {summary['nodes']}, resources_total "
+          f"{summary['resources_total']}", flush=True)
+    require(len(nodes) == 2 and summary["nodes"] == 2,
+            f"cluster_apps (a): expected 2 nodes, listed {len(nodes)}, summary {summary['nodes']}")
+    require(all(n["Resources"].get("GPU", 0.0) == (1.0 if n["NodeID"] == head else 0.0)
+                for n in nodes), f"cluster_apps (a): GPU by node {gpus}, head {head[:8]}")
+    require(all(summary["resources_total"].get(k) == v for k, v in total.items()),
+            f"cluster_apps (a): cluster_summary {summary['resources_total']} against the "
+            f"nodes' {total}")
+    out["a"] = {"gpu_by_node": gpus, "resources_total": summary["resources_total"]}
+    return head, [n["NodeID"] for n in nodes if n["NodeID"] != head][0]
+
+
+def _apps_serve(ctx, rt, torch, cpu_node, out):
+    """cluster_apps (b): llama_1b behind one proxy per node, through HTTP on
+    each, and through the CPU node's msgpack-RPC ingress: unary, streamed,
+    and 64 requests at once."""
+    import urllib.request
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.util import state
+
+    L = _llama_1b().num_layers
+    pr = ctx["serve_app_prompts"]
+    n_req, max_tokens = SERVE_APP_REQUESTS, SERVE_APP_TOKENS
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    serve.start(proxy_location="every_node", http_port=0)
+    app = (serve.deployment(_cluster_llm_class(), name="llm")
+           .options(ray_actor_options={"num_gpus": 1}, max_ongoing_requests=n_req)
+           .bind(**dict(SERVE_APP_KW, device=APPS_DEVICE)))
+    handle = serve.run(app, http=True, http_port=0, proxy_location="every_node")
+    client = None
+    try:
+        deploy_s = time.perf_counter() - t0
+        proxies = serve.api._state["proxies"]
+        addrs = serve.http_addresses()
+        rpc = rt.get([p.rpc_address.remote() for p in proxies], timeout=60)
+        where = {a["actor_id"]: a.get("node_id") for a in state.list_actors()
+                 if str(a.get("name", "")).startswith("SERVE_PROXY:")}
+        cpu_rpc = [addr for p, addr in zip(proxies, rpc)
+                   if where.get(p.actor_id.hex()) == cpu_node]
+        require(len(proxies) == 2 and len(addrs) == 2 and len(cpu_rpc) == 1,
+                f"cluster_apps (b): proxies {len(proxies)}, HTTP {addrs}, RPC {rpc}, the CPU "
+                f"node's {cpu_rpc} (placed {where})")
+        http = []
+        for addr in addrs:
+            for p in pr["singles"]:
+                req = urllib.request.Request(
+                    f"{addr}/llm", data=json.dumps({"tokens": p, "max_tokens": max_tokens,
+                                                    "timeout": 600}).encode(),
+                    headers={"Content-Type": "application/json"})
+                http.append(json.loads(urllib.request.urlopen(req, timeout=600).read())["tokens"])
+        client = serve.ServeRpcClient(cpu_rpc[0])
+        unary = [client.call("llm", {"tokens": p, "max_tokens": max_tokens, "timeout": 600},
+                             timeout=600)["tokens"] for p in pr["singles"]]
+        streamed, n_items = [], 0
+        for p in pr["singles"]:
+            toks = []
+            for item in client.stream("llm", {"tokens": p, "max_tokens": max_tokens,
+                                              "timeout": 600, "stream": True},
+                                      item_timeout=600):
+                n_items += 1
+                if "token" in item:
+                    toks.append(item["token"])
+            streamed.append(toks)
+        want = pr["want"]
+        print(f"cluster_apps (b) on {ctx['card']} ({ctx['smi']}): serve.start("
+              f"proxy_location='every_node'), the replica ready in {deploy_s:.3f} s; proxies "
+              f"HTTP {addrs}, RPC {rpc} (the CPU node's {cpu_rpc[0]}); serve_app's "
+              f"{len(want)} prompts: HTTP on each proxy equal to the serve phase's tokens "
+              f"{http == want * len(addrs)}, RPC unary {unary == want}, RPC streamed "
+              f"({n_items} items) {streamed == want}", flush=True)
+        require(http == want * len(addrs), "cluster_apps (b): HTTP tokens differ")
+        require(unary == want, "cluster_apps (b): RPC unary tokens differ")
+        require(streamed == want, "cluster_apps (b): RPC streamed tokens differ")
+        s0 = handle.engine_stats.remote().result(timeout=60)
+        handle.reset_counts.remote().result(timeout=60)
+        results, ends, t0 = _run_load(lambda r: client.call("llm", r, timeout=600),
+                                      pr["prompts"], max_tokens)
+        counts = handle.launch_counts.remote().result(timeout=60)
+        s1 = handle.engine_stats.remote().result(timeout=60)
+        proc = handle.process.remote().result(timeout=60)
+    finally:
+        if client is not None:
+            client.close()
+        serve.shutdown()
+    fig = _load_figures(results, ends, t0)
+    for r in results:
+        require(len(r["tokens"]) == max_tokens,
+                f"cluster_apps (b): a request returned {len(r['tokens'])} tokens")
+    programs = s1["prefill_programs"] - s0["prefill_programs"]
+    ticks = s1["decode_steps"] - s0["decode_steps"]
+    require_no_plain(counts, "cluster_apps (b)")
+    require(counts.get("flash_fwd") == L * programs and counts.get("paged_attention") == L * ticks
+            and programs > 0 and ticks > 0,
+            f"cluster_apps (b): the replica launched {counts} against {programs} prefill "
+            f"programs and {ticks} decode ticks of {L} layers")
+    require(proc["pid"] != os.getpid() and not proc["jax_package"],
+            f"cluster_apps (b): the replica's process {proc}")
+    launches = {n: counts.get(n, 0) for n in ("flash_fwd", "paged_attention")}
+    # serve.shutdown() frees the card: the replica's process lets its memory go
+    deadline = time.monotonic() + 60
+    while True:
+        free1 = torch.cuda.mem_get_info()[0]
+        freed = free1 >= free0 - (1 << 30)
+        if freed or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    cd = ctx["cluster"]["d"]["serve"]
+    print(f"cluster_apps (b) on {ctx['card']} ({ctx['smi']}): {n_req} requests at once through "
+          f"the CPU node's RPC ingress: {_fmt_load(fig)}; the replica's launches {launches} "
+          f"({programs} prefill programs, {ticks} decode ticks), plain 0; beside the cluster "
+          f"phase's (d) through the handle {cd['req_per_s']:.3f} req/s, latency p50 "
+          f"{cd['p50_latency_s'] * 1e3:.1f} ms p99 {cd['p99_latency_s'] * 1e3:.1f} ms; after "
+          f"serve.shutdown() the card's free memory {free1 / 2**30:.3f} GiB against "
+          f"{free0 / 2**30:.3f} before the deployment", flush=True)
+    require(freed, f"cluster_apps (b): serve.shutdown() left the card at {free1} free "
+            f"bytes, {free0} before")
+    out["b"] = {"deploy_s": deploy_s, "rpc": fig, "launches": launches,
+                "prefill_programs": programs, "decode_ticks": ticks,
+                "replica_peak_bytes": proc["peak_bytes"], "free_before": free0,
+                "free_after_shutdown": free1}
+    return launches
+
+
+def _apps_dag(ctx, rt, torch, head, out):
+    """cluster_apps (c): the runtime phase's llama_1b step as the GPU stage of
+    a compiled DAG fed by a CPU stage over a shared-memory channel."""
+    from ray_tpu_torch.core.resources import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = getattr(LlamaConfig, APPS_TRAIN["model"])()
+    L = cfg.num_layers
+    want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    n = RUNTIME_WARMUP + RUNTIME_STEPS
+    Maker = rt.remote(_apps_maker_class()).options(
+        scheduling_strategy=NodeAffinitySchedulingStrategy(head))
+    Learner = rt.remote(_apps_learner_class()).options(num_gpus=1, name=APPS_LEARNER)
+    maker = Maker.bind(cfg.vocab_size, APPS_TRAIN["batch"], APPS_TRAIN["seq"])
+    learner = Learner.bind(APPS_TRAIN["model"], APPS_TRAIN["attention_impl"], APPS_DEVICE)
+    with InputNode() as step:
+        loss = learner.step.bind(maker.make.bind(step))
+    t0 = time.perf_counter()
+    compiled = loss.experimental_compile()
+    compile_s = time.perf_counter() - t0
+    records, walls = [], []
+    try:
+        native_driver = compiled._input_chan._lib is not None
+        for i in range(n):
+            t0 = time.perf_counter()
+            records.append(compiled.execute(i).get(timeout=600))
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        compiled.teardown()
+    # after teardown the learner takes normal calls again
+    handle = rt.get_actor(APPS_LEARNER)
+    after = rt.get(handle.param_slice.remote(), timeout=120)
+    proc = rt.get(handle.process.remote(), timeout=120)
+    rt.kill(handle)
+    losses = [r["loss"] for r in records]
+    direct = ctx["runtime_direct"]
+    bit_equal = losses == direct["losses"]
+    last = records[-1]["slice"]
+    slice_equal = (last.device.type == after.device.type == APPS_DEVICE
+                   and last.dtype == after.dtype == torch.bfloat16
+                   and torch.equal(last.view(torch.int16), after.view(torch.int16)))
+    step_ms = statistics.median(r["ms"] for r in records[RUNTIME_WARMUP:])
+    wall_ms = statistics.median(walls[RUNTIME_WARMUP:])
+    launches = {k: v * n for k, v in want.items()}
+    print(f"cluster_apps (c) on {ctx['card']} ({ctx['smi']}): with InputNode() as step: "
+          f"learner.step.bind(maker.make.bind(step)), compiled in {compile_s:.3f} s; "
+          f"{RUNTIME_WARMUP} + {RUNTIME_STEPS} execute(i): losses bit-equal to the runtime "
+          f"phase's direct run {bit_equal}; median {step_ms:.3f} ms a step in the learner, "
+          f"{wall_ms:.3f} ms execute to get in the driver, beside direct "
+          f"{direct['median_ms']:.3f}; launches a step {[r['launches'] for r in records[:1]]}; "
+          f"the slice through the channel on {last.device}, bit-equal to the learner's after "
+          f"teardown {slice_equal}; native channel ops: driver {native_driver}, learner "
+          f"{proc['native_channel']}; learner peak max_memory_allocated "
+          f"{proc['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    for r in records:
+        require(r["launches"] == want, f"cluster_apps (c): a step launched {r['launches']}, "
+                f"expected {want} and no other kernel")
+    require(bit_equal, f"cluster_apps (c): losses {losses} differ from direct "
+            f"{direct['losses']}")
+    require(slice_equal, "cluster_apps (c): the parameter slice through the channel "
+            f"({last.device}, {last.dtype}) is not the learner's ({after.device})")
+    require(native_driver and proc["native_channel"],
+            "cluster_apps (c): the channel did not use the native ops")
+    require(proc["pid"] != os.getpid() and not proc["jax_package"],
+            f"cluster_apps (c): the learner's process {proc}")
+    out["c"] = {"compile_s": compile_s, "losses": losses, "bit_equal": bit_equal,
+                "median_step_ms": step_ms, "median_execute_ms": wall_ms,
+                "launches": launches, "learner_peak_bytes": proc["peak_bytes"]}
+    return launches
+
+
+def phase_cluster_apps(ctx):
+    """Serve's RPC ingress on per-node proxies and a compiled DAG on the
+    port's cluster: (a) a head with the card and a CPU-only node, listed
+    through the state API; (b) llama_1b behind one proxy per node, through
+    HTTP, the CPU node's RPC ingress unary and streamed, and 64 requests at
+    once; (c) the llama_1b train step as the GPU stage of a compiled DAG;
+    (d) the object-transfer probe."""
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.bench import measure_object_transfer
+    from ray_tpu_torch.cluster import Cluster
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rt.is_initialized():
+        rt.shutdown()
+    out = {}
+    c = Cluster(initialize_head=False)
+    try:
+        c.add_node(is_head=True, num_cpus=8)
+        # a CPU-only node: its agent sees no card (num_gpus=0 lets an agent
+        # count the cards it sees)
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        try:
+            c.add_node(num_cpus=4, num_gpus=0)
+        finally:
+            if visible is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = visible
+        c.wait_for_nodes(2, timeout=60)
+        rt.init(address=c.gcs_address)
+        head, cpu_node = _apps_nodes(ctx, rt, out)
+        ctx["cluster_apps_serve_launches"] = _apps_serve(ctx, rt, torch, cpu_node, out)
+        ctx["cluster_apps_train_launches"] = _apps_dag(ctx, rt, torch, head, out)
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        c.shutdown()
+    probe = measure_object_transfer()
+    print(f"cluster_apps (d): ray_tpu_torch.bench.measure_object_transfer(): "
+          f"{probe['bytes'] >> 20} MB pulled by the second agent at {probe['pull_mbps']} MB/s, "
+          f"raw_transfer {probe['raw_transfer']}", flush=True)
+    require(probe["raw_transfer"] is True, f"cluster_apps (d): {probe}")
+    out["d"] = probe
+    ctx["cluster_apps"] = out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -3193,12 +3564,18 @@ def main() -> int:
             entry["launches_data"] = ctx["data_launches"].get(entry["name"], 0)
             # and in the cluster phase's TrainWorker process (8 llama_1b steps)
             entry["launches_cluster"] = ctx["cluster_train_launches"].get(entry["name"], 0)
+            # and in the cluster_apps phase's compiled-DAG learner (8 steps)
+            entry["launches_cluster_apps"] = ctx["cluster_apps_train_launches"].get(
+                entry["name"], 0)
         elif key in ("k1", "k4"):  # in the serve_app phase's 64 requests through serve
             entry["launches_serve_app"] = ctx["serve_app_launches"].get(entry["name"], 0)
             # and in the c5 phase's bf16 engines (groups 1 and 8; K4 also at D256)
             entry["launches_c5"] = ctx["c5_bf16_launches"].get(entry["name"], 0)
             # and in the cluster phase's replica process (64 requests)
             entry["launches_cluster"] = ctx["cluster_serve_launches"].get(entry["name"], 0)
+            # and in the cluster_apps phase's replica behind the RPC ingress
+            entry["launches_cluster_apps"] = ctx["cluster_apps_serve_launches"].get(
+                entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -3211,7 +3588,8 @@ def main() -> int:
               "runtime": ctx["runtime"], "serve_app": ctx["serve_app"],
               "rl_platform": ctx["rl_platform"], "c5": ctx["c5"],
               "data": {k: v for k, v in ctx["data"].items() if k != "per_op_stats"},
-              "data_per_op_stats": ctx["data"].get("per_op_stats"), "cluster": ctx["cluster"]}
+              "data_per_op_stats": ctx["data"].get("per_op_stats"), "cluster": ctx["cluster"],
+              "cluster_apps": ctx["cluster_apps"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -2,7 +2,8 @@
 serving, training and RL (GRPO, PPO) paths, its mesh and sharding, and its
 task/actor/object runtime (in-process, or a multi-process cluster of GCS,
 node agents and worker processes: ``ray_tpu_torch.cluster``) with Train,
-Tune, Serve and Data on it.
+Tune, Serve, Data, DAGs (``dag``, compiled onto shared-memory channels),
+``workflow`` and ``util``'s shims on it.
 
 Mirrors ``ray_tpu``'s module paths and public names (``ops``, ``models``,
 ``serve.llm``, ``train``, ``tune``, ``rl``, ``parallel``, ``core``, ``util``

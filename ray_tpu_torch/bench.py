@@ -12,11 +12,15 @@ weights from seed 0; 3 warm-up steps, then 20 timed steps ended by a
 synchronising read of the loss. MFU uses ``bench.py``'s count of
 ``6 N + 6 L H S`` FLOPs per token against the card's bf16 dense peak from
 its name. With no card it returns ``skipped: true`` and no number.
+Beside it, ``object_transfer``: MB/s of a 16 MB object pulled between two
+node agents of the port's cluster (``measure_object_transfer``, the key
+``bench.py`` prints; ``RAY_TPU_BENCH_TRANSFER=0`` leaves it out).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import numpy as np
@@ -104,8 +108,55 @@ def train_bench(steps: int = 20, warmup: int = 3) -> dict:
     }
 
 
+def measure_object_transfer(size: int = 16 << 20) -> dict:
+    """Data-plane sample beside the train number (the counterpart of
+    ``bench.py:measure_object_transfer``): MB/s of one object of ``size``
+    bytes pulled by a second node agent from the head's store, on a
+    two-node cluster of the port on this host (agents and workers are
+    subprocesses; the store is the shared-memory arena). ``raw_transfer``
+    says the second agent counted a pull."""
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.rpc import SyncRpcClient
+
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 1})
+    try:
+        node2 = cluster.add_node(num_cpus=1)
+        cluster.wait_for_nodes(2, timeout=60)
+        ray_tpu_torch.init(address=cluster.gcs_address)
+        payload = np.zeros(size, dtype=np.uint8)
+        ref = ray_tpu_torch.put(payload)
+        agent2 = SyncRpcClient(node2.address)
+        try:
+            t0 = time.perf_counter()
+            agent2.call("ensure_local", object_id=ref.id.hex(),
+                        timeout_s=120.0, timeout=130.0)
+            dt = time.perf_counter() - t0
+            stats = agent2.call("transfer_stats")
+        finally:
+            agent2.close()
+        return {
+            "pull_mbps": round(size / dt / 1e6, 1),
+            "bytes": size,
+            "raw_transfer": bool((stats.get("pulls", 0) or 0) >= 1),
+        }
+    finally:
+        try:
+            ray_tpu_torch.shutdown()
+        finally:
+            cluster.shutdown()
+
+
 def main() -> int:
-    print(json.dumps(train_bench()))
+    result = train_bench()
+    # data-plane sample (opt out: RAY_TPU_BENCH_TRANSFER=0), as bench.py's
+    if os.environ.get("RAY_TPU_BENCH_TRANSFER", "1") != "0":
+        try:
+            result["object_transfer"] = measure_object_transfer()
+        except Exception as e:  # noqa: BLE001 - never sink the train number
+            result["object_transfer"] = {
+                "skipped": True, "error": f"{type(e).__name__}: {e}"[:200]}
+    print(json.dumps(result))
     return 0
 
 

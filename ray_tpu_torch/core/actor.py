@@ -149,11 +149,11 @@ class ActorClass:
         return ActorClass(self._cls, {**self._options, **new_options})
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG construction (ray_tpu's builds a ClassNode): not ported
-        yet."""
-        raise NotImplementedError(
-            "ActorClass.bind() builds a DAG: ray_tpu_torch.dag comes with the "
-            "dag/workflow slice of the port")
+        """Lazy DAG construction (reference: dag/class_node.py — bind builds
+        a ClassNode; method .bind()s on it chain ClassMethodNodes)."""
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs) -> ActorHandle:
         worker = require_worker()

@@ -893,11 +893,14 @@ class LocalRuntime(CoreRuntime):
         start = time.monotonic()
         try:
             if call.func_name == "__rtpu_channel_loop__":
-                # the compiled-DAG stage loop hook (ray_tpu.dag.compiled)
-                raise NotImplementedError(
-                    "compiled DAGs are not ported yet: ray_tpu_torch.dag comes with "
-                    "the dag/workflow slice of the port")
-            method = getattr(actor.instance, call.func_name)
+                # compiled-DAG stage loop hook (ray_tpu_torch/dag/compiled.py)
+                import functools as _functools
+
+                from ray_tpu_torch.dag.compiled import channel_loop
+
+                method = _functools.partial(channel_loop, actor.instance)
+            else:
+                method = getattr(actor.instance, call.func_name)
             result = method(*r_args, **r_kwargs)
             if spec.generator:
                 self._drive_generator(spec, result)

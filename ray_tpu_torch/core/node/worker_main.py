@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import functools
 import hashlib
 import os
 import queue
@@ -612,11 +613,14 @@ class WorkerProcess:
         )
         try:
             if spec["method"] == "__rtpu_channel_loop__":
-                # the compiled-DAG stage loop (ray_tpu.dag.compiled)
-                raise NotImplementedError(
-                    "compiled DAGs are not ported yet: ray_tpu.dag comes with "
-                    "the dag/workflow slice of the port")
-            method = getattr(self.actor_instance, spec["method"])
+                # compiled-DAG stage loop (ray_tpu_torch/dag/compiled.py): a
+                # framework-injected long-running method that takes over
+                # this actor until its channels close
+                from ray_tpu_torch.dag.compiled import channel_loop
+
+                method = functools.partial(channel_loop, self.actor_instance)
+            else:
+                method = getattr(self.actor_instance, spec["method"])
             args, kwargs = self._resolve_args(spec["args_payload"])
             result = method(*args, **kwargs)
             if asyncio.iscoroutine(result):

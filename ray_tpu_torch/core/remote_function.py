@@ -146,11 +146,11 @@ class RemoteFunction:
         return RemoteFunction(self._function, merged)
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG construction (ray_tpu's builds a FunctionNode): not ported
-        yet."""
-        raise NotImplementedError(
-            "RemoteFunction.bind() builds a DAG: ray_tpu_torch.dag comes with the "
-            "dag/workflow slice of the port")
+        """Lazy DAG construction (reference: dag/function_node.py — bind
+        builds a FunctionNode; nothing executes until dag.execute())."""
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs) -> Union[ObjectRef, List[ObjectRef], "Any"]:
         worker = require_worker()

@@ -5,10 +5,6 @@ Reference capability: serve/api.py (serve.run:565, serve.start,
 serve.shutdown, serve.status) — here the controller + proxy are named actors
 in the "serve" namespace so every driver/worker in the cluster reaches the
 same instance.
-
-``proxy_location="every_node"`` lists the cluster's nodes through the
-state API (``util/state.py``), which comes with serve's RPC parts: it
-raises NotImplementedError until then, and the one proxy runs on the head.
 """
 
 from __future__ import annotations
@@ -35,15 +31,11 @@ def start(http_host: str = "127.0.0.1", http_port: int = 8000,
           http: bool = True, proxy_location: str = "head"):
     """Idempotently start the serve instance (controller + proxy actors).
 
-    ``proxy_location``: "head" (one proxy on the starting node). The JAX
-    package's "every_node" (one HTTP proxy pinned to each alive node) lists
-    the cluster's nodes through ``util/state.py``, which comes with serve's
-    RPC parts: it raises NotImplementedError here, before anything starts."""
-    if http and proxy_location == "every_node":
-        raise NotImplementedError(
-            "proxy_location='every_node' lists the cluster's nodes through "
-            "util/state.py, which comes with serve's RPC parts; until then "
-            "the port runs one proxy on the head")
+    ``proxy_location``: "head" (one proxy on the starting node) or
+    "every_node" — one HTTP proxy pinned to each alive node (reference:
+    _private/proxy_state.py per-node ProxyStateManager). With every_node,
+    pass http_port=0 for ephemeral ports (required on one-box test
+    clusters where every "node" shares the same host)."""
     if not ray_tpu_torch.is_initialized():
         ray_tpu_torch.init()
     controller = _state.get("controller")
@@ -61,17 +53,41 @@ def start(http_host: str = "127.0.0.1", http_port: int = 8000,
             )
         _state["controller"] = controller
     if http and not _state.get("proxies"):
-        try:
-            p = ray_tpu_torch.get_actor(_PROXY_NAME, namespace=_NAMESPACE)
-        except ValueError:
-            p = (
-                ray_tpu_torch.remote(ProxyActor)
-                .options(name=_PROXY_NAME, namespace=_NAMESPACE,
-                         max_concurrency=8)
-                .remote(controller, http_host, http_port)
-            )
-        _state["proxy"] = p
-        _state["proxies"] = [p]
+        proxies = []
+        if proxy_location == "every_node":
+            from ray_tpu_torch.core.resources import NodeAffinitySchedulingStrategy
+            from ray_tpu_torch.util import state as _st
+
+            for n in _st.list_nodes():
+                if not n.get("Alive"):
+                    continue
+                name = f"{_PROXY_NAME}:{n['NodeID'][:12]}"
+                try:
+                    p = ray_tpu_torch.get_actor(name, namespace=_NAMESPACE)
+                except ValueError:
+                    p = (
+                        ray_tpu_torch.remote(ProxyActor)
+                        .options(
+                            name=name, namespace=_NAMESPACE, max_concurrency=8,
+                            scheduling_strategy=NodeAffinitySchedulingStrategy(
+                                n["NodeID"]),
+                        )
+                        .remote(controller, http_host, http_port)
+                    )
+                proxies.append(p)
+        else:
+            try:
+                p = ray_tpu_torch.get_actor(_PROXY_NAME, namespace=_NAMESPACE)
+            except ValueError:
+                p = (
+                    ray_tpu_torch.remote(ProxyActor)
+                    .options(name=_PROXY_NAME, namespace=_NAMESPACE,
+                             max_concurrency=8)
+                    .remote(controller, http_host, http_port)
+                )
+            proxies.append(p)
+        _state["proxy"] = proxies[0] if proxies else None
+        _state["proxies"] = proxies
     return controller
 
 
@@ -128,7 +144,7 @@ def http_address() -> Optional[str]:
 
 
 def http_addresses() -> list:
-    """Every proxy's address (the one proxy on the head, in the port)."""
+    """Every proxy's address (one per node with proxy_location="every_node")."""
     return [ray_tpu_torch.get(p.address.remote(), timeout=30)
             for p in _state.get("proxies") or []]
 

@@ -8,7 +8,11 @@ replica reconciliation). One named actor per serve instance:
 
 - holds the declarative target state {app name -> deployment spec + args}
 - reconciles: starts/stops Replica actors to match target counts
-- health-checks replicas, replacing dead ones
+- health-checks replicas, replacing dead ones. Unlike the JAX package's
+  copy, a replica is checked only once its constructor has returned (a
+  model load on a fresh GPU worker outlasts a check's 10 s), and a replica
+  that fails a check is killed before it is replaced, so its card is free
+  for the replacement (ROADMAP.md, fault C7)
 - autoscales deployments with an AutoscalingConfig on mean ongoing requests
   per replica (scrapes replica stats each tick)
 """
@@ -42,6 +46,9 @@ class ServeController:
         # polling + probing every replica
         self._version = 1
         self._version_cv = threading.Condition()
+        # replica actor id -> its first check_health call while the replica's
+        # constructor runs; None once it has answered
+        self._first_checks: Dict[str, Any] = {}
         self._loop_thread = threading.Thread(
             target=self._control_loop, daemon=True, name="serve-control-loop"
         )
@@ -228,10 +235,29 @@ class ServeController:
         except Exception:  # noqa: BLE001 - the loop must never die
             logger.exception("declarative config apply failed")
 
+    def _starting(self, replica) -> bool:
+        """True while ``replica``'s constructor runs (its first check_health
+        has not answered). A constructor may take longer than a check's 10 s
+        (a fresh GPU worker loading a model): it is not a failed check. A
+        constructor that raised fails its first check."""
+        key = replica.actor_id.hex()
+        if key not in self._first_checks:
+            self._first_checks[key] = replica.check_health.remote()
+        ref = self._first_checks[key]
+        if ref is None:
+            return False
+        if not ray_tpu_torch.wait([ref], timeout=0)[0]:
+            return True
+        self._first_checks[key] = None
+        ray_tpu_torch.get(ref)
+        return False
+
     def _health_check(self, name: str, rec: Dict[str, Any]) -> None:
         dead = []
         for r in list(rec["replicas"]):
             try:
+                if self._starting(r):
+                    continue
                 ray_tpu_torch.get(r.check_health.remote(), timeout=10)
             except Exception:  # noqa: BLE001
                 dead.append(r)
@@ -241,6 +267,13 @@ class ServeController:
                     if r in rec["replicas"]:
                         rec["replicas"].remove(r)
             self._bump_version()
+            for r in dead:
+                # a replica that failed by timing out may still be alive and
+                # holding its resources (a card): its replacement needs them
+                try:
+                    ray_tpu_torch.kill(r)
+                except Exception:  # noqa: BLE001 - already gone
+                    pass
             logger.warning("serve app %s: %d replica(s) failed health check",
                            name, len(dead))
 

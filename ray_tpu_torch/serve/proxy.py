@@ -1,5 +1,4 @@
-"""HTTP proxy: the ingress data plane (own copy of ray_tpu.serve.proxy,
-HTTP only).
+"""HTTP proxy: the ingress data plane (own copy of ray_tpu.serve.proxy).
 
 Reference capability: serve/_private/proxy.py (ProxyActor:446, HTTP entry
 :542 — route-prefix matching, request forwarding to replicas via the
@@ -7,12 +6,6 @@ replica scheduler, draining). Here: a minimal asyncio HTTP/1.1 server run by
 a proxy actor (stdlib only — no starlette in the image); bodies are decoded
 by content-type (json -> dict, text -> str, else bytes) and handed to the
 deployment's __call__ through the pow-2 router.
-
-The JAX package's proxy also listens for msgpack RPC (its gRPC-ingress
-analogue, served by ``core/rpc.py``'s ``RpcServer`` and called through
-``serve.rpc_ingress.ServeRpcClient``). The port has ``core/rpc.py`` since
-its cluster runtime came, but not the ingress itself (serve's RPC parts are
-the next slice); until then ``rpc_address()`` returns None.
 """
 
 from __future__ import annotations
@@ -42,13 +35,22 @@ def _encode_stream_item(item: Any) -> bytes:
 
 
 class ProxyActor:
-    """One per serve instance (head node). Routes /app_name/... -> app over
-    HTTP/1.1 (curl-able, json/ndjson) — the reference's uvicorn analogue."""
+    """One per serve instance (head node). Routes /app_name/... -> app.
+
+    Two ingress planes on one event loop:
+    - HTTP/1.1 (curl-able, json/ndjson) — the reference's uvicorn analogue;
+    - native msgpack-RPC (``rpc_address()``) with push-channel streaming —
+      the reference's gRPC ingress analogue (serve/_private/grpc_util.py)
+      re-based on this framework's own wire protocol; clients use
+      serve.rpc_ingress.ServeRpcClient.
+    """
 
     def __init__(self, controller, host: str = "127.0.0.1", port: int = 8000):
         self._controller = controller
         self._host = host
         self._port = port
+        self._rpc = None
+        self._rpc_addr: Optional[str] = None
         self._routes: Dict[str, Any] = {}  # app -> Router (lazy)
         self._stream_flags: Dict[str, Tuple[bool, float]] = {}  # app -> (stream, ts)
         self._ready = threading.Event()
@@ -64,15 +66,14 @@ class ProxyActor:
         return f"http://{self._host}:{self._port}"
 
     def rpc_address(self) -> Optional[str]:
-        """host:port of the msgpack-RPC ingress listener: None, as the port
-        has no RPC ingress yet (serve's RPC parts are the next slice)."""
-        return None
+        """host:port of the msgpack-RPC ingress listener."""
+        return self._rpc_addr
 
     def check_health(self) -> bool:
         return self._ready.is_set()
 
     def stop(self) -> bool:
-        """Close the listener and stop the server loop. Needed explicitly:
+        """Close both listeners and stop the server loop. Needed explicitly:
         in the local runtime actors are THREADS, so killing the actor alone
         would leave the HTTP port bound for the life of the process."""
         self._stopping = True
@@ -85,6 +86,11 @@ class ProxyActor:
             # transports (and the bound ports) alive in this process
             if self._http_server is not None:
                 self._http_server.close()
+            if self._rpc is not None:
+                try:
+                    await self._rpc.stop()
+                except Exception:  # noqa: BLE001
+                    pass
             loop.stop()
 
         asyncio.run_coroutine_threadsafe(_close(), loop)
@@ -97,9 +103,17 @@ class ProxyActor:
         asyncio.set_event_loop(self._loop)
 
         async def start():
+            from ray_tpu_torch.core.rpc import RpcServer
+
             server = await asyncio.start_server(self._on_conn, self._host, self._port)
             self._http_server = server
             self._port = server.sockets[0].getsockname()[1]
+            # RPC ingress rides the same loop; chaos-exempt (data plane)
+            self._rpc = RpcServer(self._host, 0, chaos=False)
+            self._rpc.register("serve_call", self._serve_call)
+            self._rpc.register("serve_stream", self._serve_stream)
+            host, rpc_port = await self._rpc.start()
+            self._rpc_addr = f"{host}:{rpc_port}"
             self._ready.set()
             async with server:
                 await server.serve_forever()
@@ -111,6 +125,55 @@ class ProxyActor:
                 logger.exception("proxy server died")
         except Exception:  # noqa: BLE001
             logger.exception("proxy server died")
+
+    # -------------------------------------------------------- rpc ingress
+    async def _serve_call(self, app: str, payload: Any = None,
+                          app_method: str = "__call__") -> Any:
+        """Unary RPC ingress: payload -> deployment -> msgpack-able result."""
+        loop = asyncio.get_event_loop()
+        router = await loop.run_in_executor(None, self._router_for, app)
+        if router is None:
+            raise KeyError(f"no app '{app}'")
+        call_args = (payload,) if payload is not None else ()
+        return await loop.run_in_executor(
+            None, lambda: router.call(app_method, call_args, {}))
+
+    async def _serve_stream(self, app: str, channel: str,
+                            payload: Any = None,
+                            app_method: str = "__call__") -> bool:
+        """Streaming RPC ingress: the CLIENT subscribes to ``channel`` first,
+        then calls this; items are pushed as {"item": x}, terminated by
+        {"end": true} or {"error": msg}. (The reference's gRPC server-streaming
+        analogue over the native push-pubsub plane.)"""
+        loop = asyncio.get_event_loop()
+        router = await loop.run_in_executor(None, self._router_for, app)
+        if router is None:
+            raise KeyError(f"no app '{app}'")
+        call_args = (payload,) if payload is not None else ()
+
+        def publish(data: Dict[str, Any], timeout: float = 30.0) -> None:
+            asyncio.run_coroutine_threadsafe(
+                self._rpc.publish(channel, data), loop
+            ).result(timeout)
+
+        def pull() -> None:
+            try:
+                stream = router.call_streaming(app_method, call_args, {})
+                try:
+                    for item in stream:
+                        publish({"item": item})
+                    publish({"end": True})
+                finally:
+                    stream.close()
+            except BaseException as e:  # noqa: BLE001 - surfaced in-band
+                try:
+                    publish({"error": f"{type(e).__name__}: {e}"})
+                except Exception:  # noqa: BLE001
+                    pass
+
+        threading.Thread(target=pull, daemon=True,
+                         name="proxy-rpc-stream").start()
+        return True
 
     async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         try:

@@ -48,6 +48,15 @@ def test_the_port_has_files_to_check():
             "ray_tpu_torch/core/gcs/server.py", "ray_tpu_torch/cluster.py"} <= names
 
 
+def test_the_rpc_dag_workflow_and_util_modules_are_checked():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"ray_tpu_torch/{m}" for m in (
+        "serve/rpc_ingress.py", "util/state.py", "util/actor_pool.py", "util/queue.py",
+        "util/multiprocessing.py", "util/joblib.py", "experimental/__init__.py",
+        "experimental/channel.py", "experimental/broadcast.py", "dag/__init__.py",
+        "dag/compiled.py", "workflow/__init__.py")} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_and_no_ray_tpu_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -745,15 +745,20 @@ def test_address_from_the_environment_raises(port, short_connect, monkeypatch):
 
 
 def test_bind_and_compiled_dag_raise(port):
+    """``.bind()`` builds DAG nodes (tests/test_torch_dag.py runs them), and
+    the compiled-DAG hook runs the stage loop on the actor: a plan it cannot
+    read raises in the caller, and the actor goes on serving calls."""
+    from ray_tpu_torch.dag import ClassNode, FunctionNode
+
     port.init(num_cpus=2)
     f = port.remote(lambda x: x)
     Counter = port.remote(_Counter)
-    for bindable in (f, Counter):
-        with pytest.raises(NotImplementedError, match="dag/workflow slice"):
-            bindable.bind(1)
+    assert isinstance(f.bind(1), FunctionNode)
+    assert isinstance(Counter.bind(1), ClassNode)
+    assert port.get(f.bind(41).execute()) == 41
     a = Counter.remote()
-    with pytest.raises(NotImplementedError, match="dag/workflow slice"):
-        port.get(a._submit("__rtpu_channel_loop__", (), {}, 1))
+    with pytest.raises(port.exceptions.TaskError, match="KeyError"):
+        port.get(a._submit("__rtpu_channel_loop__", ({},), {}, 1))
     assert port.get(a.increment.remote()) == 1
 
 

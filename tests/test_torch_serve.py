@@ -6,10 +6,9 @@ Each scenario follows a test of tests/test_serve.py,
 tests/test_serve_streaming.py or tests/test_serve_ops.py (keeping that
 test's own checks), is written once as a function of the package module,
 runs on each package's fresh ``LocalRuntime`` in turn, and must give the
-same observable result in both. HTTP runs on port 0. Left out: the
-multi-node proxy test (``proxy_location="every_node"`` needs the cluster
-runtime, which the port raises for) and the msgpack-RPC ingress, which the
-port's proxy does not serve yet (``rpc_address()`` is None).
+same observable result in both. HTTP runs on port 0. The msgpack-RPC
+ingress and the multi-node proxies (``proxy_location="every_node"``, which
+needs the cluster runtime) are held in tests/test_torch_serve_rpc.py.
 
 ``LLMDeployment`` at ``LlamaConfig.tiny`` in fp32, with the port's weights
 converted from the JAX package's (``params_from_jax``), gives greedy tokens
@@ -490,18 +489,27 @@ def test_llm_deployment_via_serve_matches_jax(on_both, tiny_fp32):
 
 # -------------------------------------------------------------- port only
 def test_every_node_proxies_and_rpc_ingress_are_refused():
+    """On the in-process runtime ``proxy_location="every_node"`` is refused
+    (no GCS to list nodes from; the cluster cases are in
+    tests/test_torch_serve_rpc.py), while the head's one proxy serves HTTP
+    and the msgpack-RPC ingress."""
     _shutdown_all()
     serve = _serve(ray_tpu_torch)
     try:
-        with pytest.raises(NotImplementedError, match="cluster"):
+        with pytest.raises(RuntimeError, match="cluster runtime"):
             serve.start(http_port=0, proxy_location="every_node")
-        assert not ray_tpu_torch.is_initialized()  # refused before anything started
+        assert not serve.api._state.get("proxies")  # no proxy was started
+        serve.shutdown()
         handle = serve.run(serve.deployment(_Echo, name="Echo").bind(), name="e",
                            http_port=0)
         assert handle.remote(1).result(timeout=30) == {"echo": 1}
         proxy = serve.api._state["proxy"]
-        assert ray_tpu_torch.get(proxy.rpc_address.remote(), timeout=30) is None
-        assert not hasattr(serve, "ServeRpcClient")
+        addr = ray_tpu_torch.get(proxy.rpc_address.remote(), timeout=30)
+        client = serve.ServeRpcClient(addr)
+        try:
+            assert client.call("e", 1) == {"echo": 1}
+        finally:
+            client.close()
     finally:
         _shutdown_all()
 
