@@ -169,6 +169,31 @@ Phases, all of them on every run, in this order:
            after teardown() (a normal actor call); (d) the transfer probe
            (ray_tpu_torch.bench.measure_object_transfer: 16 MB pulled by a
            second agent, raw_transfer true, MB/s).
+  ops_shell  the operator's entry points, under a temp HOME: (a) `python -m
+           ray_tpu_torch start --head --num-cpus 4` under
+           CUDA_VISIBLE_DEVICES="" (the head takes no card), `status` shows
+           1 node and no GPU; (b) a StandardAutoscaler over LocalNodeProvider
+           in this process, worker nodes of 2 CPUs and 1 GPU, at most 1,
+           idle timeout 10 s; (c) `python -m ray_tpu_torch submit
+           --working-dir <repo> -- python llama_job.py`, its log streamed by
+           the CLI: the job's driver (ray_tpu_torch.init() from
+           RAY_TPU_ADDRESS) creates one num_gpus=1 actor, pending until the
+           autoscaler's node is up (120 s, else the job fails), which in
+           that node's GPU worker (1) serves the serve phase's first 4
+           prompts one at a time through LLMEngine at the serve phase's
+           settings (llama_1b, seed-0 weights): tokens equal to the serve
+           phase's, K1 and K4 exact against its prefill programs and decode
+           ticks, plain 0; (2) runs 3 llama_1b steps (B8 S2048, seed 0):
+           losses bit-equal to the runtime phase's direct run, K1', K2, K3
+           22 launches each a step; (3) carries the trained parameters and
+           AdamW moments through params_to_jax and params_from_jax, every
+           leaf's bits equal (without ml_dtypes: params_to_jax's ImportError
+           naming it); (d) the job SUCCEEDED, `list jobs` shows return code
+           0, `logs` holds its JSON line; seconds from submit to the node
+           alive, to the first result, to the job's end; (e) the idle node
+           terminated within 30 s of the job's end, the card's free memory
+           back within 1 GiB in 10 s, `stop` leaves no process of the
+           session and no new /dev/shm/rtpt-* file.
 
 Every launch check also requires attention_plain == paged_attention_plain
 == 0: the dispatch rule sends no llama_1b or ViT-L call to a plain version,
@@ -187,7 +212,9 @@ phase's compiled-DAG learner; the first two also carry launches_serve_app,
 from the serve_app phase's 64 requests, launches_c5, from the c5 phase's
 bf16 engines, launches_cluster, from the cluster phase's replica process,
 and launches_cluster_apps, from the cluster_apps phase's replica behind the
-RPC ingress; the CUDA-core kernels' launches come from the c5
+RPC ingress; all five carry launches_ops_shell, from the ops_shell phase's
+actor on the autoscaled node: its 4 prompts for the first two, its 3 train
+steps for the other three; the CUDA-core kernels' launches come from the c5
 phase's fp32 and D256 engines and its fp32 train steps). paged_attention's
 entry also carries the c5 phase's widened shapes, its keys suffixed
 _g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
@@ -206,7 +233,7 @@ from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 PHASES = ("device", "kernels", "model", "serve", "train", "rl", "vit", "mesh", "runtime",
-          "serve_app", "rl_platform", "c5", "data", "cluster", "cluster_apps")
+          "serve_app", "rl_platform", "c5", "data", "cluster", "cluster_apps", "ops_shell")
 
 # Tolerance, bf16 kernel output against the plain version (fp32 math on the
 # same bf16 inputs, output rounded to bf16): |kernel - plain| <= ATOL + RTOL *
@@ -758,6 +785,11 @@ def phase_model(ctx):
     ctx["model_rel_err"] = worst
 
 
+# the serve phase's engine (the ops_shell phase's GPU actor builds the same)
+SERVE_ENGINE_KW = dict(paged=True, num_slots=64, page_size=64, total_pages=513,
+                       decode_chunk=32, prefill_buckets=[64, 256, 512])
+
+
 def phase_serve(ctx):
     import torch
 
@@ -771,11 +803,13 @@ def phase_serve(ctx):
     rng = torch.Generator().manual_seed(7)
     lens = [(32, 64, 128, 256)[i % 4] for i in range(n_req)]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lens]
-    engine = LLMEngine(cfg, params, device="cuda", paged=True, num_slots=64, page_size=64,
-                       total_pages=513, decode_chunk=32, prefill_buckets=[64, 256, 512])
+    engine = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE_KW)
     try:
-        # warm-up request (cuBLAS handles, allocator), then the counted run
+        # warm-up request (cuBLAS handles, allocator), then the first 4 prompts
+        # (one of each length) one at a time: the ops_shell phase's reference
         engine.generate(prompts[0], max_tokens=4, timeout=600)
+        singles = [engine.generate(p, max_tokens, None, 600)["tokens"] for p in prompts[:4]]
+        ctx["serve_singles"] = {"prompts": prompts[:4], "tokens": singles}
         torch.cuda.synchronize()
         s0 = engine.stats()
         _kernels.reset_counts()
@@ -1486,11 +1520,14 @@ RUNTIME_LOSS_RTOL = 1e-6
 RESTART_LAYERS, RESTART_SAVE_AT, RESTART_STEPS = 2, 2, 6
 
 
-def _runtime_llama_loop(report):
+def _runtime_llama_loop(report, steps=None, layers=None):
     """llama_1b, save_attn, B8 S2048 from seed 0 (train_bench's data and
-    optimizer): RUNTIME_WARMUP + RUNTIME_STEPS steps, ``report(metrics)``
+    optimizer): ``steps`` steps (RUNTIME_WARMUP + RUNTIME_STEPS unless
+    given; ``layers``: llama_1b's width at fewer layers), ``report(metrics)``
     after each with the step's ms (step and loss read), a host clock stamp
-    and the kernels it launched."""
+    and the kernels it launched. Returns the TrainState after the last."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1500,6 +1537,8 @@ def _runtime_llama_loop(report):
                                           make_train_step)
 
     cfg = LlamaConfig.llama_1b(max_seq_len=2048, remat="save_attn", attention_impl="flash")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     opt = default_optimizer(warmup_steps=10, total_steps=1000)
     state = make_train_state_factory(cfg, opt)(seed=0, device="cuda")
     step = make_train_step(cfg, opt)
@@ -1507,7 +1546,7 @@ def _runtime_llama_loop(report):
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2048))).cuda()
     targets = torch.roll(tokens, -1, dims=1)
     torch.cuda.synchronize()
-    for i in range(RUNTIME_WARMUP + RUNTIME_STEPS):
+    for i in range(steps or RUNTIME_WARMUP + RUNTIME_STEPS):
         before = dict(_kernels.launch_counts)
         t0 = time.perf_counter()
         state, metrics = step(state, tokens, targets)
@@ -1516,6 +1555,7 @@ def _runtime_llama_loop(report):
         report({"step": i, "loss": loss, "ms": ms, "t": time.perf_counter(),
                 "launches": {n: c - before.get(n, 0) for n, c in _kernels.launch_counts.items()
                              if c != before.get(n, 0)}})
+    return state
 
 
 def _runtime_restart_loop(crash: bool):
@@ -3513,6 +3553,430 @@ def phase_cluster_apps(ctx):
     ctx["cluster_apps"] = out
 
 
+# --------------------------------------------------------------------------- #
+# ops_shell: the operator's entry points (CLI, job submission, autoscaler)
+# --------------------------------------------------------------------------- #
+# the autoscaler's GPU node: idle this long before it is terminated; the
+# phase allows 20 s more for the termination itself
+OPS_IDLE_TIMEOUT_S = 10.0
+# the GPU node must be alive, and the actor placed, within this (no fallback
+# to the CPU: the job fails instead)
+OPS_NODE_TIMEOUT_S = 120.0
+# (c)2: llama_1b train steps in the actor
+OPS_TRAIN_STEPS = 3
+# the job's lines the phase reads from the log the CLI streams
+OPS_FIRST_LINE, OPS_RESULT_LINE = "OPS_SHELL_FIRST_RESULT", "OPS_SHELL_RESULT "
+OPS_JOB_SCRIPT = '''import sys
+
+import chip_smoke  # the repo, the job's working dir, is on PYTHONPATH
+
+sys.exit(chip_smoke.ops_shell_job(sys.argv[1]))
+'''
+
+
+class OpsShellActor:
+    """(c)'s num_gpus=1 actor: it runs in the GPU worker of the node the
+    autoscaler launched. Sent by reference: the worker imports chip_smoke
+    from the repo on its PYTHONPATH."""
+
+    def where(self):
+        import sys
+
+        import torch
+
+        import ray_tpu_torch as rt
+
+        return {"pid": os.getpid(), "node_id": rt.get_runtime_context().get_node_id(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "card": torch.cuda.get_device_name(0) if torch.cuda.is_available() else None,
+                "jax_package": sorted({m.split(".")[0] for m in sys.modules}
+                                      & {"ray_tpu", "jax"})}
+
+    def serve(self, spec):
+        """(c)1: the serve phase's engine at llama_1b's width (``layers``
+        deep, seed-0 weights), its warm-up, then the prompts one at a time;
+        the engine is freed before returning."""
+        import dataclasses
+        import gc
+
+        import torch
+
+        from ray_tpu_torch import _kernels
+        from ray_tpu_torch.models.llama import llama_init
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        cfg = dataclasses.replace(_llama_1b(), num_layers=spec["layers"])
+        engine = LLMEngine(cfg, llama_init(cfg, seed=0, device="cuda"), device="cuda",
+                           **SERVE_ENGINE_KW)
+        try:
+            engine.generate(spec["prompts"][0], max_tokens=4, timeout=600)
+            torch.cuda.synchronize()
+            s0 = engine.stats()
+            _kernels.reset_counts()
+            tokens = [engine.generate(p, spec["max_tokens"], None, 600)["tokens"]
+                      for p in spec["prompts"]]
+            s1 = engine.stats()
+            counts = dict(_kernels.launch_counts)
+        finally:
+            engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"tokens": tokens, "launches": counts,
+                "prefill_programs": s1["prefill_programs"] - s0["prefill_programs"],
+                "decode_ticks": s1["decode_steps"] - s0["decode_steps"],
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    def train(self, spec):
+        """(c)2: the runtime phase's llama_1b loop (B8 S2048, seed 0),
+        ``OPS_TRAIN_STEPS`` steps; the state stays here for round_trip."""
+        import torch
+
+        history = []
+        self.state = _runtime_llama_loop(history.append, steps=OPS_TRAIN_STEPS,
+                                         layers=spec["layers"])
+        return {"losses": [r["loss"] for r in history], "ms": [r["ms"] for r in history],
+                "launches": [r["launches"] for r in history],
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    def round_trip(self):
+        """(c)3: the trained parameters and AdamW moments through
+        params_to_jax and back; every leaf's bits compared. Without
+        ml_dtypes, that params_to_jax raises the ImportError naming it."""
+        import torch
+
+        from ray_tpu_torch.models.llama import params_from_jax, params_to_jax
+
+        try:
+            import ml_dtypes
+        except ImportError:
+            try:
+                params_to_jax(self.state.params)
+            except ImportError as e:
+                return {"ml_dtypes": None, "error": str(e)}
+            return {"ml_dtypes": None, "error": None}
+        trees = {"params": self.state.params, "mu": self.state.opt_state.mu,
+                 "nu": self.state.opt_state.nu}
+        out = {"ml_dtypes": ml_dtypes.__version__, "leaves": 0, "differ": [], "dtypes": {}}
+        for name, tree in trees.items():
+            back = params_from_jax(params_to_jax(tree), device="cuda")
+            for path, a, b in _leaf_pairs(name, tree, back):
+                bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+                out["leaves"] += 1
+                out["dtypes"][str(a.dtype)] = out["dtypes"].get(str(a.dtype), 0) + 1
+                if (a.dtype != b.dtype or a.device != b.device
+                        or not torch.equal(a.detach().view(bits), b.view(bits))):
+                    out["differ"].append(path)
+            del back
+        return out
+
+
+def _leaf_pairs(prefix, a, b):
+    if isinstance(a, dict):
+        for k in sorted(a):
+            yield from _leaf_pairs(f"{prefix}/{k}", a[k], b[k])
+    else:
+        yield prefix, a, b
+
+
+def ops_shell_job(spec_path: str) -> int:
+    """The job's driver (OPS_JOB_SCRIPT): ``ray_tpu_torch.init()`` from
+    RAY_TPU_ADDRESS, one num_gpus=1 OpsShellActor, its three steps; prints
+    the actor's figures as one JSON line."""
+    import ray_tpu_torch as rt
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rt.init()
+    actor = rt.remote(num_gpus=1)(OpsShellActor).remote()
+    try:
+        where = rt.get(actor.where.remote(), timeout=OPS_NODE_TIMEOUT_S)
+        serve = rt.get(actor.serve.remote(spec), timeout=900)
+        print(OPS_FIRST_LINE, flush=True)
+        train = rt.get(actor.train.remote(spec), timeout=900)
+        round_trip = rt.get(actor.round_trip.remote(), timeout=600)
+        print(OPS_RESULT_LINE + json.dumps({"where": where, "serve": serve, "train": train,
+                                            "round_trip": round_trip}), flush=True)
+    finally:
+        rt.kill(actor)
+        rt.shutdown()
+    return 0
+
+
+def _pgroup_members(pgids):
+    """Live (non-zombie) processes whose process group is one of ``pgids``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z" and int(fields[2]) in pgids:
+            out.append(int(entry))
+    return out
+
+
+def _rtpt_files():
+    return {n for n in os.listdir("/dev/shm") if n.startswith("rtpt-")}
+
+
+def ops_shell_run(card: str, layers: int, want_tokens, want_losses, prompts,
+                  max_tokens: int = 64):
+    """(a)-(e) of the ops_shell phase, at llama_1b's width with ``layers``
+    layers; ``want_tokens`` (of ``prompts``, one at a time) and
+    ``want_losses`` are the references. Returns the phase's figures and the
+    actor's launches, (c)1's and (c)2's."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from ray_tpu_torch.autoscaler import (AutoscalerConfig, LocalNodeProvider,
+                                          StandardAutoscaler)
+    from ray_tpu_torch.core.rpc import SyncRpcClient
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_shell_")
+    # the CLI's session file and dir, and the job's files, are the phase's own
+    env = dict(os.environ, HOME=tmp)
+
+    def cli(*args, **kw):
+        return subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], env=kw.pop(
+            "env", env), cwd=repo, capture_output=True, text=True, timeout=120, **kw)
+
+    free0 = torch.cuda.mem_get_info()[0]
+    shm0 = _rtpt_files()
+    out = {}
+    scaler = provider = gcs = None
+    session = {}
+    try:
+        # (a) the head, without the card
+        t0 = time.perf_counter()
+        r = cli("start", "--head", "--num-cpus", "4", "--session-dir",
+                os.path.join(tmp, "session"), env=dict(env, CUDA_VISIBLE_DEVICES=""))
+        require(r.returncode == 0, f"ops_shell (a): start failed: {r.stdout}{r.stderr}")
+        start_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, ".ray_tpu_torch", "session")) as f:
+            session = json.load(f)
+        address = session["gcs_address"]
+        r = cli("status", "--address", address)
+        require(r.returncode == 0 and "nodes alive:     1" in r.stdout and "GPU" not in r.stdout,
+                f"ops_shell (a): status {r.stdout}{r.stderr}")
+        print(f"ops_shell (a): `python -m ray_tpu_torch start --head --num-cpus 4` under "
+              f'CUDA_VISIBLE_DEVICES="" in {start_s:.3f} s (session file under the temp HOME, '
+              f"GCS {address}); status: 1 node alive, no GPU", flush=True)
+        out["a"] = {"start_s": start_s}
+        # (b) the autoscaler, in this process
+        gcs = SyncRpcClient(address)
+        head_id = [n["NodeID"] for n in gcs.call("get_nodes") if n["Alive"]][0]
+        provider = LocalNodeProvider(address)
+        scaler = StandardAutoscaler(address, provider, AutoscalerConfig(
+            worker_node_config={"num_cpus": 2, "num_gpus": 1}, max_workers=1,
+            idle_timeout_s=OPS_IDLE_TIMEOUT_S))
+        scaler.start()
+        # (c) the job, through the CLI, its log streamed until it ends
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"layers": layers, "prompts": prompts, "max_tokens": max_tokens}, f)
+        job_path = os.path.join(tmp, "llama_job.py")
+        with open(job_path, "w") as f:
+            f.write(OPS_JOB_SCRIPT)
+        stamps = {}
+        lines = []
+        t_submit = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "submit", "--address", address,
+             "--working-dir", repo, "--", sys.executable, job_path, spec_path],
+            env=env, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def watch_nodes():
+            client = SyncRpcClient(address)
+            try:
+                while proc.poll() is None and "node" not in stamps:
+                    if len([n for n in client.call("get_nodes") if n["Alive"]]) >= 2:
+                        stamps["node"] = time.perf_counter()
+                    time.sleep(0.1)
+            finally:
+                client.close()
+
+        watcher = threading.Thread(target=watch_nodes, daemon=True)
+        watcher.start()
+        killer = threading.Timer(1800, proc.kill)
+        killer.start()
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith(OPS_FIRST_LINE):
+                    stamps["first"] = time.perf_counter()
+            rc = proc.wait()
+        finally:
+            killer.cancel()
+        t_end = time.perf_counter()
+        watcher.join(timeout=5)
+        log = "".join(lines)
+        with open(os.path.join(tmp, "submit.log"), "w") as f:
+            f.write(log)
+        require(rc == 0 and "SUCCEEDED" in log,
+                f"ops_shell (c): submit exited {rc}; its output ends:\n{log[-4000:]}")
+        job_id = lines[0].split()[1].rstrip(":")
+        result = json.loads([ln for ln in lines if ln.startswith(OPS_RESULT_LINE)][-1]
+                            [len(OPS_RESULT_LINE):])
+        require("node" in stamps and "first" in stamps,
+                f"ops_shell (c): the node {'node' in stamps}, the first result "
+                f"{'first' in stamps}")
+        node_s, first_s, job_s = (stamps["node"] - t_submit, stamps["first"] - t_submit,
+                                  t_end - t_submit)
+        # (c) on the autoscaled node's GPU worker
+        where = result["where"]
+        handles = provider.non_terminated_nodes()
+        scaled = {n["NodeManagerAddress"]: n["NodeID"] for n in gcs.call("get_nodes")}
+        node_ids = {scaled.get(provider.node_address_of(h)) for h in handles}
+        require(scaler.launched == 1 and where["node_id"] in node_ids
+                and where["node_id"] != head_id and where["visible"] == "0"
+                and where["card"] == card and not where["jax_package"],
+                f"ops_shell (c): the actor ran at {where}; the autoscaler launched "
+                f"{scaler.launched} node(s) {node_ids}, the head {head_id[:8]}")
+        print(f"ops_shell (c) on {card}: `submit --working-dir {repo} -- python llama_job.py` "
+              f"({job_id}); the autoscaler launched 1 node (num_cpus 2, num_gpus 1), alive "
+              f"{node_s:.3f} s after submit; the num_gpus=1 actor ran in its GPU worker (pid "
+              f"{where['pid']}, CUDA_VISIBLE_DEVICES={where['visible']}, no JAX package)",
+              flush=True)
+        L = layers
+        sv = result["serve"]
+        programs, ticks, counts = sv["prefill_programs"], sv["decode_ticks"], sv["launches"]
+        require_no_plain(counts, "ops_shell (c)1")
+        require(counts.get("flash_fwd") == L * programs and counts.get("paged_attention")
+                == L * ticks and programs > 0 and ticks > 0,
+                f"ops_shell (c)1: launched {counts} against {programs} prefill programs and "
+                f"{ticks} decode ticks of {L} layers")
+        serve_launches = {n: counts.get(n, 0) for n in ("flash_fwd", "paged_attention")}
+        same = sv["tokens"] == want_tokens
+        print(f"ops_shell (c)1: {len(prompts)} prompts one at a time through LLMEngine "
+              f"({L} layers, the serve phase's settings), tokens equal to the reference "
+              f"{same}; launches {serve_launches} ({programs} prefill programs, {ticks} "
+              f"decode ticks), plain 0; peak {sv['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        require(same, f"ops_shell (c)1: tokens {[t[:8] for t in sv['tokens']]} against "
+                f"{[t[:8] for t in want_tokens]}")
+        tr = result["train"]
+        want = {"flash_fwd_lse": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        for i, got in enumerate(tr["launches"]):
+            require(got == want, f"ops_shell (c)2 step {i} launched {got}, expected {want} "
+                    "and no other kernel")
+        bit_equal = tr["losses"] == want_losses
+        train_launches = {k: v * len(tr["launches"]) for k, v in want.items()}
+        print(f"ops_shell (c)2: {len(tr['losses'])} llama_1b steps ({L} layers, B8 S2048, "
+              f"seed 0) in the actor: losses {tr['losses']} bit-equal to the reference "
+              f"{bit_equal}; ms {[round(m, 3) for m in tr['ms']]}; launches {train_launches}, "
+              f"plain 0; peak {tr['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        require(bit_equal, f"ops_shell (c)2: losses {tr['losses']} against {want_losses}")
+        rtrip = result["round_trip"]
+        if rtrip["ml_dtypes"] is None:
+            require(rtrip["error"] and "ml_dtypes" in rtrip["error"],
+                    f"ops_shell (c)3: without ml_dtypes params_to_jax gave {rtrip}")
+            print("ops_shell (c)3: the card machine has no ml_dtypes; params_to_jax raised "
+                  f"ImportError ({rtrip['error']}); the bf16 round trip is held on the CPU only "
+                  "(tests/test_torch_convert.py)", flush=True)
+        else:
+            require(rtrip["leaves"] > 0 and not rtrip["differ"],
+                    f"ops_shell (c)3: leaves that differ after the round trip: {rtrip}")
+            print(f"ops_shell (c)3: ml_dtypes {rtrip['ml_dtypes']}; params, mu and nu through "
+                  f"params_to_jax and params_from_jax: {rtrip['leaves']} leaves "
+                  f"{rtrip['dtypes']}, every one bit-equal on cuda", flush=True)
+        # (d) the job's record
+        r = cli("list", "jobs", "--address", address)
+        jobs = {j["job_id"]: j for j in json.loads(r.stdout)} if r.returncode == 0 else {}
+        job = jobs.get(job_id, {})
+        r = cli("logs", job_id, "--address", address)
+        require(job.get("status") == "SUCCEEDED" and job.get("returncode") == 0
+                and OPS_RESULT_LINE in r.stdout,
+                f"ops_shell (d): list jobs {job}; logs hold the result line "
+                f"{OPS_RESULT_LINE in r.stdout}")
+        print(f"ops_shell (d): `list jobs`: {job_id} SUCCEEDED, return code 0; `logs` holds "
+              f"the JSON line; submit to the node alive {node_s:.3f} s, to the first result "
+              f"{first_s:.3f} s, the job {job_s:.3f} s", flush=True)
+        # (e) scale-down, the card's memory, stop
+        require(_until(lambda: scaler.terminated >= 1, OPS_IDLE_TIMEOUT_S + 20),
+                f"ops_shell (e): the idle GPU node was not terminated within "
+                f"{OPS_IDLE_TIMEOUT_S + 20:.0f} s of the job's end")
+        down_s = time.perf_counter() - t_end
+        require(_until(lambda: torch.cuda.mem_get_info()[0] >= free0 - 2**30, 10),
+                f"ops_shell (e): free memory {torch.cuda.mem_get_info()[0] / 2**30:.3f} GiB "
+                f"against {free0 / 2**30:.3f} before (a)")
+        free1 = torch.cuda.mem_get_info()[0]
+        out.update(c={"job_id": job_id, "node_s": node_s, "first_result_s": first_s,
+                      "job_s": job_s, "tokens_equal": same, "losses": tr["losses"],
+                      "losses_bit_equal": bit_equal, "train_ms": tr["ms"],
+                      "serve_launches": serve_launches, "train_launches": train_launches,
+                      "prefill_programs": programs, "decode_ticks": ticks,
+                      "serve_peak_bytes": sv["peak_bytes"], "train_peak_bytes": tr["peak_bytes"],
+                      "round_trip": rtrip},
+                   e={"scale_down_s": down_s, "free_before_gib": free0 / 2**30,
+                      "free_after_gib": free1 / 2**30})
+    finally:
+        if scaler is not None:
+            scaler.stop()
+            for h in provider.non_terminated_nodes():
+                provider.terminate_node(h)
+        if gcs is not None:
+            gcs.close()
+        r = cli("stop")
+        pgids = set(session.get("pids", []))
+        shutil.rmtree(tmp, ignore_errors=True)
+        if provider is not None:
+            shutil.rmtree(provider.session_dir, ignore_errors=True)
+    require(r.returncode == 0, f"ops_shell (e): stop failed: {r.stdout}{r.stderr}")
+    _until(lambda: not _pgroup_members(pgids), 10)
+    left = _pgroup_members(pgids)
+    files = _rtpt_files() - shm0
+    print(f"ops_shell (e): the autoscaler terminated the idle GPU node {out['e']['scale_down_s']:.3f}"
+          f" s after the job ended (idle timeout {OPS_IDLE_TIMEOUT_S:.0f} s); free memory "
+          f"{out['e']['free_after_gib']:.3f} GiB against {out['e']['free_before_gib']:.3f} before "
+          f"(a); `stop` left {len(left)} processes of the session and {len(files)} rtpt- files",
+          flush=True)
+    require(not left, f"ops_shell (e): processes of the session still alive: {left}")
+    require(not files, f"ops_shell (e): /dev/shm files left: {sorted(files)}")
+    return out, out["c"]["serve_launches"], out["c"]["train_launches"]
+
+
+def _until(cond, timeout: float) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.1)
+    return cond()
+
+
+def phase_ops_shell(ctx):
+    """The slice through the operator's entry points, at llama_1b's full
+    width: (a) `python -m ray_tpu_torch start` of a head without the card;
+    (b) a StandardAutoscaler of GPU nodes in this process; (c) a job
+    submitted through the CLI whose num_gpus=1 actor serves and trains
+    llama_1b on the node the autoscaler launched; (d) the job's record;
+    (e) scale-down, the card's memory, `stop`."""
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rt.is_initialized():
+        rt.shutdown()
+    singles = ctx["serve_singles"]
+    out, serve_launches, train_launches = ops_shell_run(
+        ctx["card"], _llama_1b().num_layers, singles["tokens"],
+        ctx["runtime_direct"]["losses"][:OPS_TRAIN_STEPS], singles["prompts"])
+    ctx["ops_shell"] = out
+    ctx["ops_shell_serve_launches"] = serve_launches
+    ctx["ops_shell_train_launches"] = train_launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: {sys.argv[0]} (takes no arguments)", file=sys.stderr)
@@ -3567,6 +4031,8 @@ def main() -> int:
             # and in the cluster_apps phase's compiled-DAG learner (8 steps)
             entry["launches_cluster_apps"] = ctx["cluster_apps_train_launches"].get(
                 entry["name"], 0)
+            # and in the ops_shell phase's actor on the autoscaled node (3 steps)
+            entry["launches_ops_shell"] = ctx["ops_shell_train_launches"].get(entry["name"], 0)
         elif key in ("k1", "k4"):  # in the serve_app phase's 64 requests through serve
             entry["launches_serve_app"] = ctx["serve_app_launches"].get(entry["name"], 0)
             # and in the c5 phase's bf16 engines (groups 1 and 8; K4 also at D256)
@@ -3576,6 +4042,8 @@ def main() -> int:
             # and in the cluster_apps phase's replica behind the RPC ingress
             entry["launches_cluster_apps"] = ctx["cluster_apps_serve_launches"].get(
                 entry["name"], 0)
+            # and in the ops_shell phase's actor on the autoscaled node (4 prompts)
+            entry["launches_ops_shell"] = ctx["ops_shell_serve_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -3589,7 +4057,7 @@ def main() -> int:
               "rl_platform": ctx["rl_platform"], "c5": ctx["c5"],
               "data": {k: v for k, v in ctx["data"].items() if k != "per_op_stats"},
               "data_per_op_stats": ctx["data"].get("per_op_stats"), "cluster": ctx["cluster"],
-              "cluster_apps": ctx["cluster_apps"]}
+              "cluster_apps": ctx["cluster_apps"], "ops_shell": ctx["ops_shell"]}
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -18,7 +18,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card present they raise instead of falling back to the CPU.
 """
 
-__version__ = "0.1.0"
+from ray_tpu_torch._version import __version__
 # the runtime's API first: train.trainer declares its worker actor with
 # ray_tpu_torch.remote while the package is still importing
 from ray_tpu_torch.api import (available_resources, cancel, cluster_resources, free, get,

@@ -740,17 +740,23 @@ class GcsServer:
         backoff = 0.02
         last_error = "unknown"
         attempts = 0
+        # a pending actor is demand the autoscaler scales up from, as a
+        # pending task is (the JAX package's feeds none: fault C9)
+        demand = f"actor:{actor_id}"
         while True:
             rec = self.actors.get(actor_id)
             if rec is None or rec["state"] == "DEAD":
+                self._unmet_demand.pop(demand, None)
                 return
             target = self._schedule_one(request)
             if target is None:
+                self._unmet_demand[demand] = (time.monotonic(), dict(request["resources"]))
                 if not self._feasible_nodes(request["resources"]):
                     # no alive node can EVER satisfy it right now; keep
                     # waiting a bounded time for nodes to join, then fail
                     attempts += 1
                     if attempts > 200:
+                        self._unmet_demand.pop(demand, None)
                         await self._actor_creation_failed(
                             actor_id, f"infeasible resources {request['resources']}"
                         )
@@ -758,6 +764,8 @@ class GcsServer:
                 await asyncio.sleep(backoff)
                 backoff = min(backoff * 1.5, 1.0)
                 continue
+            # rtpulint: disable=race -- the key is this actor's own
+            self._unmet_demand.pop(demand, None)
             client = await self._agent_client(target)
             if client is None:
                 await asyncio.sleep(backoff)

@@ -26,6 +26,7 @@ import asyncio
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Any, Dict, List, Optional, Set, Tuple
 
@@ -109,7 +110,8 @@ class NodeAgent:
         self.total_resources[f"node:{self.hex}"] = 1.0
         self.available: Dict[str, float] = dict(self.total_resources)
         self.labels = {**accelerators.node_gpu_labels(), **(labels or {})}
-        self.session_dir = session_dir or f"/tmp/ray_tpu_torch/{os.getpid()}"
+        self.session_dir = session_dir or os.path.join(
+            tempfile.gettempdir(), "ray_tpu_torch", str(os.getpid()))
         os.makedirs(self.session_dir, exist_ok=True)
         self.store = ShmObjectStore(
             self.hex,

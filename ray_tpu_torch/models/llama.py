@@ -179,6 +179,25 @@ def params_from_jax(tree, device="cpu") -> Dict[str, Any]:
     return _to_tensor(tree).to(device)
 
 
+def params_to_jax(tree) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: the same nesting as numpy arrays
+    in the stacked ``[L, ...]`` x @ W layout, bits copied exactly. bf16
+    leaves become ``ml_dtypes.bfloat16`` arrays (numpy's bf16 type, which
+    ``jnp.asarray`` takes and ``_to_tensor`` reads back). Serves the AdamW
+    moments (``TrainState.opt_state.mu`` / ``nu``) too: the same nesting."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    t = tree.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        try:
+            import ml_dtypes
+        except ImportError as e:
+            raise ImportError("params_to_jax needs the ml_dtypes package for bf16 leaves "
+                              "(numpy has no bfloat16 type of its own)") from e
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
     """Layer i's weights out of the stacked [L, ...] tensors (views)."""
     return {name: w[i] for name, w in params["layers"].items()}

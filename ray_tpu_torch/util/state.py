@@ -64,19 +64,11 @@ def list_tasks() -> List[Dict[str, Any]]:
 
 
 def list_jobs() -> List[Dict[str, Any]]:
-    """The jobs recorded under the GCS KV's ``job:`` keys (the JAX package
-    reads them through ``job/sdk.py:list_jobs_from_gcs``, which the port
-    does not have yet; this is the same read)."""
-    gcs = _gcs()
-    out = []
-    for key in gcs.call("kv_keys", prefix="job:"):
-        raw = gcs.call("kv_get", key=key)
-        if raw:
-            try:
-                out.append(json.loads(raw))
-            except ValueError:
-                pass
-    return out
+    """The jobs recorded under the GCS KV's ``job:`` keys, read through
+    ``job/sdk.py:list_jobs_from_gcs`` as the JAX package's is."""
+    from ray_tpu_torch.job.sdk import list_jobs_from_gcs
+
+    return list_jobs_from_gcs(_gcs())
 
 
 def cluster_summary() -> Dict[str, Any]:
