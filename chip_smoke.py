@@ -103,19 +103,28 @@ Phases, all of them on every run, in this order:
   c5       fault C5's shapes and dtypes: (a) K4 at groups 1, 2, 8, 16 and 32
            (D128) and group 4 at D256, bf16, against its plain version at
            the serving table and a long ragged shape, twice bitwise equal,
-           event- and graph-timed beside the plain version; (b) every
-           CUDA-core kernel of csrc/attention_simt.cu in fp32 at D64/128/256
-           (atol = rtol = 2e-5) and bf16 at D256 against its plain version,
-           then timed at the c5 paths' shapes beside SDPA and its bound (fp32
+           event- and graph-timed beside the plain version; (b) K1 and K1'
+           at D256 in bf16 (flash_fwd.cu's D256 instance) against their
+           plain versions at 5 shapes (groups 1, 4 and 8, ragged, not
+           causal, Sq < Skv), twice bitwise equal, then timed at the c5
+           prefill shape (B8 S128, 8 q heads over 2) and at B8 S2048 beside
+           SDPA's forward and the bound; (c) every CUDA-core kernel of
+           csrc/attention_simt.cu in fp32 at D64/128/256 (atol = rtol =
+           2e-5), and its bf16 D256 dQ and dK/dV fed by the tensor-core
+           forward's lse and out_lo, against their plain versions, then
+           timed at the c5 paths' shapes beside SDPA and their bound (fp32
            operations at the CUDA cores' fp32 peak; bf16 at the bf16
-           tensor-core peak); (c)
-           LLMEngine at llama_1b's width with 2 layers for MHA, group 8 and
-           D256 in bf16 and group 4 in fp32, 8 requests each, exact
-           launches of each route's kernels, fp32 tokens equal to the plain
-           path's; (d) fp32 training (B2 S512) against the plain path: every
-           gradient of the first step (relative norm, leaf by leaf), then 3
-           train steps at a nonzero learning rate from the first update,
-           each loss.
+           tensor-core peak); (d) LLMEngine at llama_1b's width with 2
+           layers for MHA, group 8 and D256 in bf16 and group 4 in fp32, 8
+           requests each, exact launches of each route's kernels, fp32
+           tokens equal to the plain path's (bf16: how many requests'
+           tokens are, printed); (e) fp32 training (B2 S512)
+           against the plain path: every gradient of the first step
+           (relative norm, leaf by leaf), then 3 train steps at a nonzero
+           learning rate from the first update, each loss; (f) bf16
+           training of the D256 config (B2 S512): loss and gradients against
+           the plain path, then 3 steps with exact launches of K1' (tensor
+           cores) and the CUDA-core dQ and dK/dV.
   data     512 seeded 224 px PNGs through read_images, map_batches,
            streaming_split(1) and iter_torch_batches(batch_size=32) into 20
            ViT-L/16 steps (ray_tpu_torch.bench_data_train): images/s, the
@@ -210,13 +219,18 @@ timed steps, the runtime phase's first GpuTrainer run, the data phase's
 steps, the cluster phase's TrainWorker process and the cluster_apps
 phase's compiled-DAG learner; the first two also carry launches_serve_app,
 from the serve_app phase's 64 requests, launches_c5, from the c5 phase's
-bf16 engines, launches_cluster, from the cluster phase's replica process,
-and launches_cluster_apps, from the cluster_apps phase's replica behind the
-RPC ingress; all five carry launches_ops_shell, from the ops_shell phase's
+bf16 engines, launches_c5_d256, from its D256 engine alone,
+launches_cluster, from the cluster phase's replica process, and
+launches_cluster_apps, from the cluster_apps phase's replica behind the RPC
+ingress; all five carry launches_ops_shell, from the ops_shell phase's
 actor on the autoscaled node: its 4 prompts for the first two, its 3 train
 steps for the other three; the CUDA-core kernels' launches come from the c5
-phase's fp32 and D256 engines and its fp32 train steps). paged_attention's
-entry also carries the c5 phase's widened shapes, its keys suffixed
+phase's fp32 engine and its fp32 train steps; flash_fwd_lse and the
+CUDA-core dQ and dK/dV also carry launches_c5_d256, from the c5 phase's
+bf16 D256 train steps). flash_fwd's and flash_fwd_lse's entries also carry
+the D256 instance's numbers, keys suffixed _d256 (the c5 prefill shape)
+and _d256_s2048 (B8 S2048), and its ptxas registers and spills;
+paged_attention's the c5 phase's widened shapes, keys suffixed
 _g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
 """
 
@@ -368,11 +382,47 @@ def phase_device(ctx):
     secs = _kernels.build_all()
     ctx["build_s"] = secs
     print(f"kernel build: {secs:.1f} s", flush=True)
+    ctx["ptxas"] = {}
     for name in ("flash_fwd", "flash_bwd", "paged_attention", "attention_simt"):
-        for line in _kernels.build_log(name).splitlines():
+        log = _kernels.build_log(name)
+        for line in log.splitlines():
             if ("registers" in line or "spill" in line or "entry function" in line
                     or "error" in line.lower()):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+        ctx["ptxas"][name] = ptxas_summary(log)
+        for inst, rep in ctx["ptxas"][name].items():
+            print(f"  ptxas {name} {inst}: {rep['registers']} registers, {rep['spill_stores']} "
+                  f"bytes spill stores, {rep['spill_loads']} bytes spill loads", flush=True)
+
+
+def ptxas_summary(log: str) -> dict:
+    """{instance: {"registers", "spill_stores", "spill_loads"}} from an
+    ``-Xptxas -v`` build log; an instance is its kernel's name with the
+    template arguments of its mangled name, e.g. ``flash_fwd_kernel<256>``."""
+    import re
+
+    out, inst = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            kern = re.search(r"([a-z_]+_kernel)I(\w*?E)Ev", mangled)
+            if kern:  # template arguments: Li<n>E an int, f float, 13__nv_bfloat16
+                args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", kern.group(2))
+                inst = (f"{kern.group(1)}<"
+                        + ", ".join("bf16" if a[1] else "f32" if a[2] else a[0] for a in args)
+                        + ">")
+            else:
+                inst = mangled
+            out[inst] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and inst:
+            out[inst]["spill_stores"], out[inst]["spill_loads"] = map(int, spill.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and inst:
+            out[inst]["registers"] = int(regs.group(1))
+    return out
 
 
 def _flash_case(torch, b, sq, skv, hq, hkv, d, causal, seed, copies=1):
@@ -2240,6 +2290,14 @@ C5_LAYERS = 2
 C5_PREFILL_ATTN = (8, 128, 128, 16, 4, 128, True)
 C5_PREFILL_D256 = (8, 128, 128, 8, 2, 256, True)
 C5_TRAIN_ATTN = (2, 512, 512, 16, 4, 128, True)
+# llama_1b's width as 8 q heads of 256 over 2 (the c5 D256 config) at the
+# training shape, B8 S2048 causal: the same 137 GFLOP of causal products as
+# llama_1b's K1' shape, where the D256 forward is also timed
+D256_TRAIN_ATTN = (8, 2048, 2048, 8, 2, 256, True)
+# the D256 tensor-core forward against its plain version: the two timed
+# shapes, then groups 4, 1 and 8 with ragged, non-causal and Sq < Skv rows
+D256_FWD_CHECKS = (C5_PREFILL_D256, D256_TRAIN_ATTN, (2, 100, 300, 8, 2, 256, True),
+                   (1, 196, 196, 4, 4, 256, False), (1, 65, 200, 8, 1, 256, True))
 C5_ENGINE_KW = dict(paged=True, num_slots=8, page_size=64, decode_chunk=8, max_seq_len=512,
                     prefill_buckets=[128])
 # fp32 training, kernels against the plain path: both fp32, only the order
@@ -2278,9 +2336,11 @@ def phase_c5(ctx):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctx["c5"] = {"k4_widened": _c5_paged_widened(ctx)}
+    _c5_d256_forward(ctx)
     _c5_simt_kernels(ctx)
     _c5_serve(ctx)
     _c5_train(ctx)
+    _c5_train_d256(ctx)
 
 
 def _c5_paged_widened(ctx):
@@ -2335,11 +2395,97 @@ def _c5_paged_widened(ctx):
     return out
 
 
+def _c5_d256_forward(ctx):
+    """K1 and K1' at head dim 256 in bf16 (flash_fwd.cu's D256 instance)
+    against their plain versions at each D256_FWD_CHECKS shape: out of both,
+    lse and out + out_lo of K1' (the bf16 tolerances of the kernels phase),
+    each launched twice, bitwise equal. Then each timed at the c5 prefill
+    shape and at B8 S2048, event-timed (``ms``) and inside a CUDA graph
+    (``device_ms``: the device alone), beside its plain version, SDPA's
+    forward and its bound; the numbers go on K1's and K1''s entries of the
+    kernels line, keys suffixed _d256 and _d256_s2048."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as ta
+
+    errs = {"k1": [], "k1l": []}
+    for i, shape in enumerate(D256_FWD_CHECKS):
+        causal = shape[-1]
+        (q, k, v), = _flash_case(torch, *shape, seed=500 + i)
+        outs = [ta.flash_attention(q, k, v, causal=causal) for _ in range(2)]
+        trained = [ta.flash_attention_lse(q, k, v, causal) for _ in range(2)]
+        torch.cuda.synchronize()
+        require(torch.equal(outs[0], outs[1]) and
+                all(torch.equal(a, b) for a, b in zip(*trained)),
+                f"c5 D256 forward {shape}: two launches differ")
+        out, lse, out_lo = trained[0]
+        for t in (outs[0], out, lse, out_lo):
+            require(bool(torch.isfinite(t).all()), f"c5 D256 forward {shape}: non-finite output")
+        require(bool((out_lo.float().abs() <= 2 ** -7 * out.float().abs()).all()),
+                f"c5 flash_fwd_lse D256 {shape}: out_lo is not out's rounding residual")
+        ref, ref_lse, ref_lo = ta.reference_attention_lse(q, k, v, causal)
+        o32, ref_o32 = out.float() + out_lo.float(), ref.float() + ref_lo.float()
+        ratios = {"flash_fwd out": close_ratio(outs[0], ref),
+                  "flash_fwd_lse out": close_ratio(out, ref),
+                  "flash_fwd_lse out + out_lo": close_ratio(o32, ref_o32),
+                  "flash_fwd_lse lse": ((lse - ref_lse).abs()
+                                        / (LSE_ATOL + LSE_RTOL * ref_lse.abs())).max().item()}
+        errs["k1"].append((outs[0].float() - ref.float()).abs().max().item())
+        errs["k1l"].append((out.float() - ref.float()).abs().max().item())
+        print(f"c5 D256 forward (flash_fwd.cu) {shape}: max_abs_err out {errs['k1'][-1]:.3e}, "
+              f"with lse {errs['k1l'][-1]:.3e}; worst error / tolerance "
+              f"{ {w: round(r, 3) for w, r in ratios.items()} } (must be <= 1); bitwise "
+              "repeatable", flush=True)
+        for what, ratio in ratios.items():
+            require(ratio <= 1.0, f"c5 {what} D256 {shape} disagrees: {ratio}")
+        del q, k, v, outs, trained, out, lse, out_lo, ref, ref_lse, ref_lo, o32, ref_o32
+        torch.cuda.empty_cache()
+
+    rep = ctx["ptxas"]["flash_fwd"].get("flash_fwd_kernel<256>", {})
+    for key in ("k1", "k1l"):
+        ctx[key].update({f"{k}_d256": rep.get(k) for k in
+                         ("registers", "spill_stores", "spill_loads")})
+    print(f"c5 flash_fwd_kernel<256> (ptxas): {rep}", flush=True)
+    for suffix, shape in (("_d256", C5_PREFILL_D256), ("_d256_s2048", D256_TRAIN_ATTN)):
+        b, sq, skv, hq, hkv, d, causal = shape
+        sets = _flash_case(torch, *shape, seed=520, copies=2)
+        lib = cuda_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+            enable_gqa=True), sets)
+        flops = 4.0 * b * hq * d * _visible_pairs(sq, skv, causal)
+        q_el, kv_el = b * sq * hq * d, b * skv * hkv * d
+        fns = {"k1": (lambda q, k, v: ta.flash_attention(q, k, v, causal=causal),
+                      lambda q, k, v: ta.reference_attention(q, k, v, causal=causal),
+                      2.0 * (2 * q_el + 2 * kv_el)),
+               "k1l": (lambda q, k, v: ta.flash_attention_lse(q, k, v, causal),
+                       lambda q, k, v: ta.reference_attention_lse(q, k, v, causal),
+                       2.0 * (3 * q_el + 2 * kv_el) + 4.0 * b * hq * sq)}
+        for key, (fn, plain, nbytes) in fns.items():
+            ms = cuda_ms(torch, fn, sets)
+            dev_ms = graph_ms(torch, fn, sets)
+            plain_ms = cuda_ms(torch, plain, sets, iters=3, warmup=1)
+            bms, by = bound_ms(flops, nbytes, ctx["peaks"])
+            ctx[key].update({f"ms{suffix}": ms, f"device_ms{suffix}": dev_ms,
+                             f"plain_ms{suffix}": plain_ms,
+                             f"library_ms{suffix}": lib, f"bound_ms{suffix}": bms,
+                             f"bound_by{suffix}": by, f"max_abs_err{suffix}": max(errs[key]),
+                             f"shape{suffix}": list(shape)})
+            print(f"c5 {ctx[key]['name']} D256 (tensor cores) {shape}: {ms:.5f} ms, device "
+                  f"(graph) {dev_ms:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms, SDPA forward {lib:.5f} ms, bound {bms:.5f} ms ({by}: "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.4f} GB) on {ctx['card']}", flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
 def _c5_simt_kernels(ctx):
     """Every SIMT kernel against its plain version: fp32 at D64/128/256
-    (F32_TOL), bf16 at D256 (the bf16 tolerances of the kernels phase); then
-    each timed at the c5 paths' shapes, beside its plain version, SDPA where
-    one call computes the same function, and its fp32 bound."""
+    (F32_TOL), and the bf16 D256 backward (dQ, dK/dV) fed by the
+    tensor-core forward's lse and out_lo (the bf16 tolerances of the kernels
+    phase); then each timed at the c5 paths' shapes, beside its plain
+    version, SDPA where one call computes the same function, and its
+    bound."""
     import torch
 
     from ray_tpu_torch.models import paged_decode as pd
@@ -2367,9 +2513,12 @@ def _c5_simt_kernels(ctx):
         ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
         ref_dk, ref_dv = ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
         lse_ratio = ((lse - ref_lse).abs() / (LSE_ATOL + LSE_RTOL * ref_lse.abs())).max().item()
-        checks = [("k1s", "flash_fwd_simt out", out, ref), ("k1ls", "flash_fwd_lse_simt out", out_l, ref),
-                  ("k2s", "flash_bwd_dq_simt dq", dq, ref_dq),
-                  ("k3s", "flash_bwd_dkv_simt dk", dk, ref_dk), ("k3s", "flash_bwd_dkv_simt dv", dv, ref_dv)]
+        # the bf16 D256 forward is the tensor-core kernel, held in _c5_d256_forward
+        checks = [("k1s", "flash_fwd_simt out", out, ref),
+                  ("k1ls", "flash_fwd_lse_simt out", out_l, ref)] if f32 else []
+        checks += [("k2s", "flash_bwd_dq_simt dq", dq, ref_dq),
+                   ("k3s", "flash_bwd_dkv_simt dk", dk, ref_dk),
+                   ("k3s", "flash_bwd_dkv_simt dv", dv, ref_dv)]
         for key, what, got, want in checks:
             ratio = (_f32_ratio(got, want) if f32 else
                      close_ratio(got, want) if key in ("k1s", "k1ls") else _grad_ratio(got, want))
@@ -2378,10 +2527,11 @@ def _c5_simt_kernels(ctx):
             require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
                     f"c5 {what} {dtype} {shape}: worst error / tolerance {ratio}")
         require((_f32_ratio(lse, ref_lse) if f32 else lse_ratio) <= 1.0,
-                f"c5 flash_fwd_lse_simt lse {dtype} {shape} disagrees")
+                f"c5 flash_fwd_lse lse {dtype} {shape} disagrees")
         require(not f32 or not out_lo.any(), "c5: fp32 out_lo is not zero")
-        print(f"c5 SIMT flash kernels {str(dtype)[6:]} {shape}: max_abs_err out "
-              f"{errs['k1s'][-1]:.3e}, dq {errs['k2s'][-1]:.3e}, dk/dv {errs['k3s'][-1]:.3e} "
+        print(f"c5 SIMT flash kernels {str(dtype)[6:]} {shape}: max_abs_err "
+              + (f"out {errs['k1s'][-1]:.3e}, " if f32 else "(forward on the tensor cores) ")
+              + f"dq {errs['k2s'][-1]:.3e}, dk/dv {errs['k3s'][-1]:.3e} "
               f"(tol {'atol = rtol = ' + str(F32_TOL) if f32 else 'bf16'})", flush=True)
         del q, k, v, dout, out, out_l, lse, out_lo, delta, dq, dk, dv, ref, ref_lse, ref_dq, \
             ref_dk, ref_dv
@@ -2422,7 +2572,7 @@ def _c5_time_simt(ctx, errs):
                 "dq": (6.0 * b * hq * d * pairs, esize * (3 * q_el + 2 * kv_el) + 8.0 * rows),
                 "dkv": (8.0 * b * hq * d * pairs, esize * (2 * q_el + 4 * kv_el) + 8.0 * rows)}
 
-    def timed(shape, dtype, seed, peaks, esize):
+    def timed(shape, dtype, seed, peaks, esize, names=("fwd", "fwd_lse", "dq", "dkv")):
         causal, scale = shape[-1], shape[5] ** -0.5
         sets = []
         for i in range(2):
@@ -2448,7 +2598,8 @@ def _c5_time_simt(ctx, errs):
                "dkv": (lambda *a: ta.flash_bwd_dkv(*a, causal, scale),
                        lambda *a: ta.flash_bwd_dkv_reference(*a, causal, scale), lib_bwd)}
         res = {}
-        for name, (fn, plain, lib) in fns.items():
+        for name in names:
+            fn, plain, lib = fns[name]
             ms = cuda_ms(torch, fn, sets, iters=5, warmup=1)
             plain_ms = cuda_ms(torch, plain, sets, iters=3, warmup=1)
             bms, by = bound_ms(*work(shape, esize)[name], peaks)
@@ -2462,7 +2613,8 @@ def _c5_time_simt(ctx, errs):
 
     prefill = timed(C5_PREFILL_ATTN, torch.float32, 400, f32_peaks, 4.0)
     train = timed(C5_TRAIN_ATTN, torch.float32, 410, f32_peaks, 4.0)
-    d256 = timed(C5_PREFILL_D256, torch.bfloat16, 420, ctx["peaks"], 2.0)
+    # bf16 at D256 only the backward runs on the CUDA cores
+    d256 = timed(C5_PREFILL_D256, torch.bfloat16, 420, ctx["peaks"], 2.0, names=("dq", "dkv"))
     meta = {"k1s": ("flash_fwd_simt", "ray_tpu/ops/attention.py:71", prefill["fwd"],
                     C5_PREFILL_ATTN),
             "k1ls": ("flash_fwd_lse_simt", "ray_tpu/ops/attention.py:155", train["fwd_lse"],
@@ -2472,15 +2624,15 @@ def _c5_time_simt(ctx, errs):
             "k3s": ("flash_bwd_dkv_simt", "ray_tpu/ops/attention.py:224", train["dkv"],
                     C5_TRAIN_ATTN)}
     for key, (name, replaces, (ms, plain_ms, lib, bms, by), shape) in meta.items():
-        sub = d256["fwd" if key == "k1s" else "fwd_lse" if key == "k1ls" else
-                   "dq" if key == "k2s" else "dkv"]
         ctx[key] = {"name": name, "route": "cuda", "source": SIMT_SRC, "replaces": replaces,
                     "max_abs_err": max(errs[key]), "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib, "shape": list(shape),
-                    "ms_bf16_d256": sub[0], "plain_ms_bf16_d256": sub[1],
-                    "library_ms_bf16_d256": sub[2], "bound_ms_bf16_d256": sub[3],
-                    "bound_by_bf16_d256": sub[4],
-                    "shape_bf16_d256": list(C5_PREFILL_D256)}
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib, "shape": list(shape)}
+        if key in ("k2s", "k3s"):
+            sub = d256["dq" if key == "k2s" else "dkv"]
+            ctx[key].update({"ms_bf16_d256": sub[0], "plain_ms_bf16_d256": sub[1],
+                             "library_ms_bf16_d256": sub[2], "bound_ms_bf16_d256": sub[3],
+                             "bound_by_bf16_d256": sub[4],
+                             "shape_bf16_d256": list(C5_PREFILL_D256)})
     # paged_attention_simt at the c5 fp32 engine's decode: 8 slots of
     # llama_1b's heads, fp32, 1..512 rows on 64-row pages
     sets = [_paged_inputs(torch, 430 + i, 8, 1, 512, 65, 1, 16, 4, 128, max_pages=8,
@@ -2519,10 +2671,11 @@ def _c5_configs():
 def _c5_serve(ctx):
     """LLMEngine answers 8 greedy requests for each _c5_configs entry: every
     prefill program launches the forward kernel and every decode tick the
-    decode kernel once a layer (the tensor-core kernels in bf16 at D128, the
-    SIMT forward at D256 and in fp32, the SIMT decode in fp32), no call runs
-    a plain version, and the fp32 tokens equal those of the same engine
-    through the plain versions."""
+    decode kernel once a layer (the tensor-core kernels in bf16, D256 too,
+    the SIMT forward and decode in fp32), no call runs a plain version, and
+    the fp32 tokens equal those of the same engine through the plain
+    versions (in bf16 the number of requests whose tokens are equal is
+    reported)."""
     import torch
 
     from ray_tpu_torch import _kernels
@@ -2558,7 +2711,7 @@ def _c5_serve(ctx):
 
         tokens, counts, programs, ticks = serve()
         fp32 = cfg.dtype == torch.float32
-        fwd = "flash_fwd_simt" if fp32 or cfg.head_dim_ == 256 else "flash_fwd"
+        fwd = "flash_fwd_simt" if fp32 else "flash_fwd"
         dec = "paged_attention_simt" if fp32 else "paged_attention"
         want = {fwd: C5_LAYERS * programs, dec: C5_LAYERS * ticks}
         require_no_plain(counts, f"c5 serve {name}")
@@ -2568,24 +2721,27 @@ def _c5_serve(ctx):
         line = (f"c5 serve {name} (nh {cfg.num_heads}, n_kv {cfg.num_kv_heads}, D "
                 f"{cfg.head_dim_}, {str(cfg.dtype)[6:]}, {C5_LAYERS} layers): 8 requests x 16 "
                 f"tokens, {programs} prefill programs, {ticks} decode ticks, launches {counts}")
-        if fp32:
-            _kernels.reset_counts()
-            with mock.patch.object(ta, "flash_attention",
-                                   lambda q, k, v, causal=True, scale=None:
-                                   ta.reference_attention(q, k, v, causal, scale)), \
-                    mock.patch.object(pd, "paged_attention",
-                                      lambda *a: pd._paged_attention_reference(*a, 1.0)):
-                plain_tokens = serve()[0]
-            require_no_launches(_kernels.launch_counts, "c5 serve plain")
-            same = sum(a == b for a, b in zip(tokens, plain_tokens))
-            line += f"; greedy tokens equal to the plain path's in {same} of 8 requests"
-            require(same == len(tokens), f"c5 serve {name}: tokens differ from the plain path")
+        _kernels.reset_counts()
+        with mock.patch.object(ta, "flash_attention",
+                               lambda q, k, v, causal=True, scale=None:
+                               ta.reference_attention(q, k, v, causal, scale)), \
+                mock.patch.object(pd, "paged_attention",
+                                  lambda *a: pd._paged_attention_reference(*a, 1.0)):
+            plain_tokens = serve()[0]
+        require_no_launches(_kernels.launch_counts, "c5 serve plain")
+        same = sum(a == b for a, b in zip(tokens, plain_tokens))
+        line += f"; greedy tokens equal to the plain path's in {same} of 8 requests"
+        # In bf16 the kernels and the plain versions round at other points, and
+        # random weights leave near-tied greedy picks that such rounding moves:
+        # the count is reported there, and required only in fp32.
+        require(not fp32 or same == len(tokens), f"c5 serve {name}: tokens differ from the "
+                "plain path")
         print(line, flush=True)
         for n, c in counts.items():
             target = simt_counts if n.endswith("_simt") else bf16_counts
             target[n] = target.get(n, 0) + c
         ctx["c5"][f"serve_{name}"] = {"prefill_programs": programs, "decode_ticks": ticks,
-                                      "launches": counts}
+                                      "launches": counts, "tokens_equal_plain": same}
         del params
         torch.cuda.empty_cache()
     ctx["c5_serve_launches"], ctx["c5_bf16_launches"] = simt_counts, bf16_counts
@@ -2690,6 +2846,85 @@ def _c5_train(ctx):
                           "step_ms": dt / 3 * 1e3, "plain_step_ms": plain_dt / 3 * 1e3,
                           "launches": launches}
     ctx["c5_train_launches"] = launches
+    torch.cuda.empty_cache()
+
+
+def _c5_train_d256(ctx):
+    """bf16 training of the c5 D256 config (llama_1b's width as 8 q heads of
+    256 over 2, C5_LAYERS layers, save_attn, B2 S512): the tensor-core
+    forward with lse (K1') and the CUDA-core dQ and dK/dV fed by its lse and
+    out_lo. The loss and every gradient from the seed-0 state against the
+    same work through the plain versions (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL,
+    as the train phase holds llama_1b); then 3 train steps, each launching
+    each of the three kernels once a layer and no plain version."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models.llama import llama_loss
+    from ray_tpu_torch.ops import attention as ta
+    from ray_tpu_torch.train.step import (default_optimizer, make_train_state_factory,
+                                          make_train_step)
+
+    cfg = dataclasses.replace(_c5_configs()["d256_bf16"], remat="save_attn")
+    opt = default_optimizer(warmup_steps=0, total_steps=100)
+    rng = np.random.default_rng(4)
+    b, s = C5_TRAIN_ATTN[0], C5_TRAIN_ATTN[1]
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    targets = torch.roll(tokens, -1, dims=1)
+    want = {"flash_fwd_lse": C5_LAYERS, "flash_bwd_dq_simt": C5_LAYERS,
+            "flash_bwd_dkv_simt": C5_LAYERS}
+    state = make_train_state_factory(cfg, opt)(seed=0, device="cuda")
+    names, leaves = grad_leaves(state.params)
+
+    def grads():
+        with torch.enable_grad():
+            loss = llama_loss(state.params, tokens, targets, cfg)
+            return loss.detach(), [g.detach() for g in torch.autograd.grad(loss, leaves)]
+
+    _kernels.reset_counts()
+    loss_k, grads_k = grads()
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launch_counts)
+    require_no_plain(counts, "c5 train D256")
+    require(counts == want, f"c5 train D256 gradients launched {counts}, expected {want}")
+    _kernels.reset_counts()
+    with mock.patch.object(ta, "flash_attention_lse", ta.reference_attention_lse), \
+            mock.patch.object(ta, "flash_bwd", ta.flash_bwd_reference):
+        loss_p, grads_p = grads()
+    torch.cuda.synchronize()
+    require_no_launches(_kernels.launch_counts, "c5 train D256")
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"c5 train D256 bf16 ({C5_LAYERS} layers, B{b} S{s}, save_attn): loss kernels "
+          f"{loss_k.item():.6f} plain {loss_p.item():.6f}, relative {rel_loss:.3e} (tol "
+          f"{TRAIN_LOSS_RTOL}); launches {counts}", flush=True)
+    worst = compare_grads(torch, "c5 train D256", names, grads_k, grads_p)
+    require(rel_loss <= TRAIN_LOSS_RTOL, f"c5 train D256 loss disagrees: {rel_loss}")
+    del leaves, grads_k, grads_p
+
+    step = make_train_step(cfg, opt)
+    losses = []
+    _kernels.reset_counts()
+    for i in range(3):
+        before = dict(_kernels.launch_counts)
+        state, metrics = step(state, tokens, targets)
+        losses.append(metrics["loss"].item())
+        step_counts = {n: c - before.get(n, 0) for n, c in _kernels.launch_counts.items()
+                       if c != before.get(n, 0)}
+        require(math.isfinite(losses[-1]), f"c5 train D256 step {i}: non-finite loss")
+        require(step_counts == want, f"c5 train D256 step {i} launched {step_counts}, "
+                f"expected {want}")
+    launches = dict(_kernels.launch_counts)
+    require(losses[1] != losses[0], "c5 train D256: the first update did not move the loss")
+    print(f"c5 train D256 bf16: 3 steps, losses {losses}, launches {launches}", flush=True)
+    ctx["c5"]["train_d256"] = {"loss": loss_k.item(), "plain_loss": loss_p.item(),
+                               "rel_loss": rel_loss, "grad_rel": worst, "losses": losses,
+                               "launches": launches}
+    ctx["c5_train_d256_launches"] = launches
+    del state
     torch.cuda.empty_cache()
 
 
@@ -4010,8 +4245,8 @@ def main() -> int:
     # launches: each kernel's count from the run of the path it lies on
     runs = {"k1": ctx["launches"], "k1l": ctx["train_launches"], "k2": ctx["train_launches"],
             "k3": ctx["train_launches"], "k4": ctx["launches"],
-            # the CUDA-core kernels, from the c5 phase's fp32 and D256 engines
-            # and its fp32 train steps
+            # the CUDA-core kernels, from the c5 phase's fp32 engine and its
+            # fp32 train steps
             "k1s": ctx["c5_serve_launches"], "k1ls": ctx["c5_train_launches"],
             "k2s": ctx["c5_train_launches"], "k3s": ctx["c5_train_launches"],
             "k4s": ctx["c5_serve_launches"]}
@@ -4035,8 +4270,11 @@ def main() -> int:
             entry["launches_ops_shell"] = ctx["ops_shell_train_launches"].get(entry["name"], 0)
         elif key in ("k1", "k4"):  # in the serve_app phase's 64 requests through serve
             entry["launches_serve_app"] = ctx["serve_app_launches"].get(entry["name"], 0)
-            # and in the c5 phase's bf16 engines (groups 1 and 8; K4 also at D256)
+            # and in the c5 phase's bf16 engines (groups 1 and 8, and D256)
             entry["launches_c5"] = ctx["c5_bf16_launches"].get(entry["name"], 0)
+            # of which the D256 engine's
+            entry["launches_c5_d256"] = ctx["c5"]["serve_d256_bf16"]["launches"].get(
+                entry["name"], 0)
             # and in the cluster phase's replica process (64 requests)
             entry["launches_cluster"] = ctx["cluster_serve_launches"].get(entry["name"], 0)
             # and in the cluster_apps phase's replica behind the RPC ingress
@@ -4044,13 +4282,15 @@ def main() -> int:
                 entry["name"], 0)
             # and in the ops_shell phase's actor on the autoscaled node (4 prompts)
             entry["launches_ops_shell"] = ctx["ops_shell_serve_launches"].get(entry["name"], 0)
+        if key in ("k1l", "k2s", "k3s"):  # the c5 phase's bf16 D256 train steps
+            entry["launches_c5_d256"] = ctx["c5_train_d256_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         print(f"chip_smoke: kernels never launched on the main path: {idle}", file=sys.stderr)
         return 1
     record = {"card": ctx["card"], "smi": ctx["smi"], "build_s": ctx["build_s"],
-              "peaks": ctx["peaks_key"], "kernels": kernels,
+              "ptxas": ctx["ptxas"], "peaks": ctx["peaks_key"], "kernels": kernels,
               "model_rel_err": ctx["model_rel_err"], "serve": ctx["serve"],
               "train": ctx["train"], "rl": ctx["rl"], "vit": ctx["vit"], "mesh": ctx["mesh"],
               "runtime": ctx["runtime"], "serve_app": ctx["serve_app"],

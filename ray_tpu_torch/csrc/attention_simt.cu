@@ -9,10 +9,11 @@
 //   the Pallas library's paged_attention as called by
 //   ray_tpu/models/paged_decode.py:_paged_attention (:93).
 // The reference runs its kernels in any dtype. The bf16 kernels of
-// flash_fwd.cu and flash_bwd.cu (wgmma) tile head dims 64 and 128, and
-// paged_attention.cu (mma.sync) bf16 at 128 and 256. This file takes the rest
-// of what the port's dispatch sends to a kernel: fp32 at head dims 64, 128 and
-// 256 (all four kernels), and bf16 at head dim 256 (the three flash kernels).
+// flash_fwd.cu (wgmma) tile head dims 64, 128 and 256, those of flash_bwd.cu
+// 64 and 128, and paged_attention.cu (mma.sync) bf16 at 128 and 256. This
+// file takes the rest of what the port's dispatch sends to a kernel: fp32 at
+// head dims 64, 128 and 256 (all four kernels), and bf16 at head dim 256 for
+// the two backward kernels (dQ, dK/dV). The forward is fp32 only.
 //
 // Precision. fp32 attention is computed with full fp32 products (FFMA on the
 // CUDA cores), not TF32 on the tensor cores: the plain version on the card is
@@ -109,12 +110,13 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward: grid (ceil(Sq / BR), Hq, B).
-template <typename T, int D>
+// Forward, fp32: grid (ceil(Sq / BR), Hq, B). out_lo, the output's rounding
+// residual, is 0 in fp32.
+template <int D>
 __global__ void __launch_bounds__(NT)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ out, float* __restrict__ lse, T* __restrict__ out_lo, int Sq, int Skv,
-           int Hq, int Hkv, int causal, float scale) {
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           float* __restrict__ out, float* __restrict__ lse, float* __restrict__ out_lo, int Sq,
+           int Skv, int Hq, int Hkv, int causal, float scale) {
   constexpr int LD = D + 1;
   extern __shared__ float sm[];
   float* sQ = sm;                // [BR][LD]
@@ -128,9 +130,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
   const int qi = q0 + r;
   const long qs = (long)Hq * D, ks = (long)Hkv * D;
-  const T* kb = k + (long)b * Skv * ks + (long)hk * D;
-  const T* vb = v + (long)b * Skv * ks + (long)hk * D;
-  load_rows<T, D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
+  const float* kb = k + (long)b * Skv * ks + (long)hk * D;
+  const float* vb = v + (long)b * Skv * ks + (long)hk * D;
+  load_rows<float, D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
   // keys any row of the tile sees
   const int kend = causal ? min(Skv, min(q0 + BR, Sq) + off) : Skv;
 
@@ -140,8 +142,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int jj = 0; jj < D / TPR; ++jj) o[jj] = 0.f;
   for (int k0 = 0; k0 < kend; k0 += BC) {
     __syncthreads();  // the previous tile is consumed (and sQ is loaded)
-    load_rows<T, D>(sK, kb, ks, k0, BC, Skv);
-    load_rows<T, D>(sV, vb, ks, k0, BC, Skv);
+    load_rows<float, D>(sK, kb, ks, k0, BC, Skv);
+    load_rows<float, D>(sV, vb, ks, k0, BC, Skv);
     __syncthreads();
     float s[CPT];
     bool seen[CPT];
@@ -160,7 +162,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int j = 0; j < CPT; ++j) {
       const float p = seen[j] ? expf(s[j] - m_new) : 0.f;
       psum += p;
-      sP[r * PLD + c + TPR * j] = round_to<T>(p);  // p in the value dtype for P.V
+      sP[r * PLD + c + TPR * j] = p;
     }
     l = l * alpha + row_sum(psum);
     m = m_new;
@@ -179,10 +181,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const long row = ((long)b * Sq + qi) * qs + (long)h * D;
 #pragma unroll
   for (int jj = 0; jj < D / TPR; ++jj) {
-    const float val = o[jj] * inv;
-    const T rounded = from_f<T>(val);
-    out[row + c + TPR * jj] = rounded;
-    if (out_lo != nullptr) out_lo[row + c + TPR * jj] = from_f<T>(val - to_f(rounded));
+    out[row + c + TPR * jj] = o[jj] * inv;
+    if (out_lo != nullptr) out_lo[row + c + TPR * jj] = 0.f;
   }
   if (lse != nullptr && c == 0) lse[((long)b * Hq + h) * Sq + qi] = m + logf(lsafe);
 }
@@ -433,17 +433,17 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
+template <int D>
 int fwd_launch(const void* q, const void* k, const void* v, void* out, void* lse, void* out_lo,
                int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
                cudaStream_t st) {
   const size_t bytes = sizeof(float) * ((BR + 2 * BC) * (D + 1) + BR * PLD);
-  cudaError_t err = allow_smem(fwd_kernel<T, D>, bytes);
+  cudaError_t err = allow_smem(fwd_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<T, D><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), static_cast<T*>(out_lo), Sq, Skv, Hq, Hkv,
-      causal, scale);
+  fwd_kernel<D><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), static_cast<float*>(out_lo), Sq, Skv,
+      Hq, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -498,15 +498,13 @@ int check_shape(int B, int Sq, int Skv, int Hq, int Hkv) {
 
 }  // namespace
 
-// The instances: fp32 at D 64, 128 and 256; bf16 at D 256 (the flash kernels
-// only; paged decode is fp32 only). Any other (dtype, D) returns
-// cudaErrorInvalidValue.
-#define SIMT_DISPATCH(CALL)                                      \
-  if (dtype == F32 && D == 64) return CALL(float, 64);           \
-  if (dtype == F32 && D == 128) return CALL(float, 128);         \
-  if (dtype == F32 && D == 256) return CALL(float, 256);         \
-  if (dtype == BF16 && D == 256 && flash) return CALL(bf16, 256); \
-  return (int)cudaErrorInvalidValue;
+// The instances: fp32 at D 64, 128 and 256 for every kernel; bf16 at D 256
+// for dQ and dK/dV only (the bf16 D 256 forward is flash_fwd.cu's). Any other
+// (dtype, D) returns cudaErrorInvalidValue.
+#define SIMT_F32(CALL)                                   \
+  if (dtype == F32 && D == 64) return CALL(float, 64);   \
+  if (dtype == F32 && D == 128) return CALL(float, 128); \
+  if (dtype == F32 && D == 256) return CALL(float, 256);
 
 extern "C" int simt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv, int D,
@@ -515,11 +513,10 @@ extern "C" int simt_flash_fwd(const void* q, const void* k, const void* v, void*
   if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
   if ((lse == nullptr) != (out_lo == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool flash = true;
-#define FWD(T, DIM) \
-  fwd_launch<T, DIM>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st)
-  SIMT_DISPATCH(FWD)
+#define FWD(T, DIM) fwd_launch<DIM>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st)
+  SIMT_F32(FWD)
 #undef FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int simt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -529,11 +526,12 @@ extern "C" int simt_flash_bwd_dq(const void* q, const void* k, const void* v, co
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool flash = true;
 #define DQ(T, DIM) \
   dq_launch<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st)
-  SIMT_DISPATCH(DQ)
+  SIMT_F32(DQ)
+  if (dtype == BF16 && D == 256) return DQ(bf16, 256);
 #undef DQ
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int simt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -543,11 +541,12 @@ extern "C" int simt_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   if (B == 0) return (int)cudaSuccess;
   if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool flash = true;
 #define DKV(T, DIM) \
   dkv_launch<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, scale, st)
-  SIMT_DISPATCH(DKV)
+  SIMT_F32(DKV)
+  if (dtype == BF16 && D == 256) return DKV(bf16, 256);
 #undef DKV
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int simt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
@@ -558,12 +557,12 @@ extern "C" int simt_paged_attention(const void* q, const void* k_pool, const voi
   if (n_kv <= 0 || nh % n_kv != 0 || page_size <= 0 || max_pages <= 0 || total_pages <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool flash = false;
 #define PAGED(T, DIM)                                                                      \
   paged_launch<T, DIM>(q, k_pool, v_pool, table, lengths, out, B, nh, n_kv, total_pages, \
                        page_size, max_pages, st)
-  SIMT_DISPATCH(PAGED)
+  SIMT_F32(PAGED)
 #undef PAGED
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -223,14 +223,35 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// d += A . B with B [16 x N] MN-major, N the head dim (64 or 128): the product
-// whose width is a template parameter (P.V, dS.K, P^T.dO, dS^T.Q).
+// d (+)= A . B with both from shared memory, B [16 x N] K-major, N 64 or 128:
+// the score product whose width is the K/V tile's (Q.K^T).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss takes N 64 or 128");
+  if constexpr (N == 128) wgmma_ss_n128(d, desc_a, desc_b, accumulate);
+  else wgmma_ss_n64(d, desc_a, desc_b, accumulate);
+}
+
+// d += A . B with B [16 x N] MN-major, N the head dim (64, 128 or 256): the
+// product whose width is a template parameter (P.V, dS.K, P^T.dO, dS^T.Q).
+// N 256 is two m64n128k16 products, over B's slabs {0, 1} and {2, 3}: the
+// second starts two slabs further, twice the descriptor's leading byte
+// offset (bits 16-29, the slab distance), and accumulates into d's upper
+// half, whose elements are columns 128 and up in the layout above.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "wgmma_rs takes N 64 or 128");
-  if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
-  else wgmma_rs_n64(d, a, desc_b);
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs takes N 64, 128 or 256");
+  if constexpr (N == 256) {
+    const uint64_t lbo = (desc_b >> 16) & 0x3FFF;
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc_b);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, desc_b + 2 * lbo);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, desc_b);
+  } else {
+    wgmma_rs_n64(d, a, desc_b);
+  }
 }
 
 // Write a warpgroup's m64nN fp32 accumulator, row half r times mul[r], as

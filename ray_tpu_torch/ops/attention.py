@@ -10,19 +10,20 @@ Port of ray_tpu/ops/attention.py.
   kernels written out in fp32. They are the CPU path and the yardsticks the
   kernels are held against on the card.
 - ``flash_attention`` wraps the forward kernel (``csrc/flash_fwd.cu``): bf16,
-  head_dim 64 or 128; ``flash_attention_lse`` runs the same kernel for the
+  head_dim 64, 128 or 256; ``flash_attention_lse`` runs the same kernel for the
   training path, which also writes the row log-sum-exp and ``out_lo``, the
   rounding residual ``o - bf16(o)`` of the output. The two count apart, as
   ``flash_fwd`` and ``flash_fwd_lse``.
 - ``flash_bwd`` wraps the two backward kernels (``csrc/flash_bwd.cu``): dQ
   (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 64 or 128,
   any number of q heads per kv head.
-- The same wrappers send fp32 at head dim 64, 128 or 256, and bf16 at head
-  dim 256, to the CUDA-core kernels of ``csrc/attention_simt.cu`` (full fp32
-  products, no TF32), which count under their own names with ``_simt``
-  appended (``flash_fwd_simt``, ``flash_fwd_lse_simt``,
-  ``flash_bwd_dq_simt``, ``flash_bwd_dkv_simt``). In fp32 ``out_lo`` is
-  zeros. ``delta = rowsum(dO * O)`` is computed
+- The same wrappers send fp32 at head dim 64, 128 or 256, and the bf16
+  backward at head dim 256, to the CUDA-core kernels of
+  ``csrc/attention_simt.cu`` (full fp32 products, no TF32), which count
+  under their own names with ``_simt`` appended (``flash_fwd_simt``,
+  ``flash_fwd_lse_simt`` in fp32; ``flash_bwd_dq_simt``,
+  ``flash_bwd_dkv_simt``). ``simt_route`` decides, by kernel, dtype and
+  head dim. In fp32 ``out_lo`` is zeros. ``delta = rowsum(dO * O)`` is computed
   here in fp32, outside the kernels, as the JAX package computes it, but
   from ``out + out_lo``: ``delta`` has to equal the sum over keys of
   ``p * dP`` that the backward's own ``p`` and ``dP`` carry, and the bf16
@@ -76,10 +77,12 @@ from ray_tpu_torch import _kernels
 NEG_INF = -1e30
 FWD_LIB, BWD_LIB, SIMT_LIB = "flash_fwd", "flash_bwd", "attention_simt"
 # The head dims the kernels take, forward and backward alike, at any GQA
-# group (Hq % Hkv == 0): the tensor-core kernels bf16 at 64 and 128, the
-# CUDA-core kernels fp32 at all three and bf16 at 256.
+# group (Hq % Hkv == 0): in bf16 the tensor-core kernels at WGMMA_DIMS of
+# theirs and the CUDA-core kernels at the rest; in fp32 the CUDA-core kernels
+# at all three.
 KERNEL_DIMS = (64, 128, 256)
-WGMMA_DIMS = (64, 128)
+WGMMA_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128),
+              "flash_bwd_dkv": (64, 128)}
 SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN = "attention_plain"
 
@@ -188,16 +191,18 @@ def _check_shapes(q, k, v, causal: bool) -> None:
 
 
 def simt_route(kernel: str, dtype, head_dim: int) -> bool:
-    """Whether a CUDA call of this dtype and head dim goes to the CUDA-core
+    """Whether a CUDA call of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
+    "flash_bwd_dkv") in this dtype and head dim goes to the CUDA-core
     kernels (``csrc/attention_simt.cu``): fp32 at any head dim the kernels
-    tile, bf16 at 256. bf16 at 64 and 128 goes to the tensor-core kernels;
-    anything else raises."""
+    tile, and the bf16 backward at 256. bf16 goes to the tensor-core kernels
+    at the head dims of ``WGMMA_DIMS[kernel]`` (the forward at 64, 128 and
+    256, the backward at 64 and 128); anything else raises."""
     if head_dim not in KERNEL_DIMS:
         raise ValueError(f"{kernel} kernel takes head_dim "
                          f"{' or '.join(map(str, KERNEL_DIMS))}, got {head_dim}")
     if dtype not in SIMT_DTYPES:
         raise ValueError(f"{kernel} kernel takes bfloat16 or float32, got {dtype}")
-    return dtype == torch.float32 or head_dim not in WGMMA_DIMS
+    return dtype == torch.float32 or head_dim not in WGMMA_DIMS[kernel]
 
 
 def _launch_fwd(q, k, v, causal: bool, scale: float, training: bool):
@@ -296,7 +301,7 @@ def _launch_bwd(name: str, tensors, q, k, causal: bool, scale: float) -> None:
     on the tensor-core or the CUDA-core kernel by ``simt_route``."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    simt = simt_route("flash_bwd", q.dtype, d)
+    simt = simt_route(name, q.dtype, d)
     args = [*(_kernels.ptr(t) for t in tensors), b, sq, skv, hq, hkv, d, int(causal),
             float(scale)]
     if simt:

@@ -68,6 +68,12 @@ def test_flash_fwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
     out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["flash_fwd_lse"] == before + 1
+    _check_fwd_lse(q, k, v, causal, out, lse, out_lo)
+
+
+def _check_fwd_lse(q, k, v, causal, out, lse, out_lo):
+    """The training forward's out, out_lo and lse against the plain versions."""
+    (_, sq, hq, d), (_, skv, hkv, _), dev = q.shape, k.shape, q.device
     ref_out, _, ref_lo = ta.reference_attention_lse(q, k, v, causal=causal)
     _close(out, ref_out)
     # out_lo: out's rounding residual, within half a bf16 ulp of out, and
@@ -84,7 +90,44 @@ def test_flash_fwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
     torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), atol=1e-3, rtol=1e-4)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+D256_FWD_CASES = [  # (b, sq, skv, hq, hkv, causal), head dim 256
+    (8, 128, 128, 8, 2, True),     # the c5 engine's prefill: one q tile a block
+    (2, 100, 300, 8, 2, True),     # group 4, ragged, Sq < Skv (offset 200)
+    (1, 196, 196, 4, 4, False),    # group 1, ViT's 196 rows: the second q tile's last rows
+    (1, 65, 200, 8, 1, True),      # group 8, one row past the first 64-row warpgroup
+    (2, 64, 64, 8, 8, False),      # group 1, the second warpgroup's rows all past Sq
+    (1, 1, 257, 4, 1, True),       # one query row: the last 64-key tile holds one key
+    (3, 200, 200, 8, 2, True),     # a map that ignored the batch would read the next one
+    (1, 129, 320, 16, 2, False),   # group 8, Sq < Skv, not causal
+    (1, 300, 700, 4, 2, True),     # offset 400: not a multiple of the 64-key tile
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,causal", D256_FWD_CASES)
+def test_flash_fwd_d256_matches_plain(dev, b, sq, skv, hq, hkv, causal):
+    """The tensor-core forward at head dim 256 (64-key tiles, 256 threads),
+    with and without lse and out_lo, against the plain versions at the bf16
+    tolerances of test_flash_fwd_matches_plain; each call launches
+    flash_fwd or flash_fwd_lse once and no CUDA-core kernel; two launches
+    give bitwise-equal results."""
+    g = torch.Generator(device=dev).manual_seed(b * 1000 + sq + skv + 256)
+    q, k, v = _bf16((b, sq, hq, 256), g, dev), _bf16((b, skv, hkv, 256), g, dev), \
+        _bf16((b, skv, hkv, 256), g, dev)
+    before = _counts()
+    out = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    trained = ta.flash_attention_lse(q, k, v, causal=causal)
+    trained_again = ta.flash_attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"flash_fwd": 2, "flash_fwd_lse": 2}
+    _close(out, reference_attention(q, k, v, causal=causal))
+    _check_fwd_lse(q, k, v, causal, *trained)
+    assert torch.equal(out, again) and torch.equal(out, trained[0])
+    for a, b_ in zip(trained, trained_again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_fwd_is_deterministic(dev, d):
     """Two launches on the same inputs give bitwise-equal out and lse: the
     kernel sums in a fixed order, with no atomics."""
@@ -393,6 +436,11 @@ def _rel(a, b):
                                  "flash_bwd_dkv": 1}),            # ViT-B's D64, group 1
     ((1, 64, 16, 4, 128), False, {"flash_fwd": 1}),               # llama_1b
     ((1, 64, 16, 4, 128), True, {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+    ((1, 64, 8, 2, 256), False, {"flash_fwd": 1}),                # D256: the tensor-core forward
+    ((1, 64, 8, 2, 256), True, {"flash_fwd_lse": 1, "flash_bwd_dq_simt": 1,
+                                "flash_bwd_dkv_simt": 1}),        # ... and the CUDA-core backward
+    ((2, 100, 8, 1, 256), True, {"flash_fwd_lse": 1, "flash_bwd_dq_simt": 1,
+                                 "flash_bwd_dkv_simt": 1}),       # group 8, ragged
 ])
 def test_attention_dispatch_counts(dev, shape, grad, want):
     b, s, hq, hkv, d = shape
@@ -935,10 +983,14 @@ def test_simt_kernels_fp32_match_plain(dev, shape):
         _close_f32(got, want)
 
 
-@pytest.mark.parametrize("shape", [(2, 100, 300, 8, 2, 256, True), (1, 196, 196, 4, 4, 256, False)])
+@pytest.mark.parametrize("shape", [(2, 100, 300, 8, 2, 256, True), (1, 196, 196, 4, 4, 256, False),
+                                   (1, 65, 200, 8, 1, 256, True)])
 def test_simt_kernels_bf16_d256_match_plain(dev, shape):
-    """bf16 at D256, which the wgmma kernels do not tile, at the bf16
-    tolerances of the tensor-core kernels' tests; bitwise repeatable."""
+    """bf16 at D256: the tensor-core forward (flash_fwd.cu) writes lse and
+    out_lo, and the CUDA-core backward kernels, which the wgmma backward
+    does not tile at D256, fed by them give the plain backward's gradients
+    at the bf16 tolerances of the tensor-core kernels' tests; bitwise
+    repeatable."""
     causal = shape[-1]
     q, k, v, dout = _f32_case(shape, sum(shape[:6]), dev, torch.bfloat16)
     before = _counts()
@@ -946,7 +998,7 @@ def test_simt_kernels_bf16_d256_match_plain(dev, shape):
     grads = ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo)
     again = ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo)
     torch.cuda.synchronize()
-    assert _delta(before) == {"flash_fwd_lse_simt": 1, "flash_bwd_dq_simt": 2,
+    assert _delta(before) == {"flash_fwd_lse": 1, "flash_bwd_dq_simt": 2,
                               "flash_bwd_dkv_simt": 2}
     ref_out, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
     _close(out, ref_out)
@@ -979,7 +1031,9 @@ def test_simt_paged_attention_fp32_matches_plain(dev, nh, nkv, d):
 def test_c5_engine_on_the_card(dev, dtype, nkv, head_dim):
     """A narrow 2-layer config at groups 4, 2 and 8 (fp32) and 1 and 4 (bf16),
     and at D256 (bf16): the engine is built and answers, through the kernels
-    only; in fp32 the greedy tokens equal the CPU's."""
+    only (the prefill through the tensor-core forward in bf16, D256 too, and
+    the CUDA-core forward in fp32); in fp32 the greedy tokens equal the
+    CPU's."""
     from ray_tpu_torch.models.llama import llama_init
     from ray_tpu_torch.serve.llm import LLMEngine
 
@@ -997,8 +1051,11 @@ def test_c5_engine_on_the_card(dev, dtype, nkv, head_dim):
     counts = _delta(before)
     assert not {n: c for n, c in counts.items() if n in PLAINS}, counts
     simt = "" if dtype == torch.bfloat16 else "_simt"
-    fwd = "flash_fwd" + ("_simt" if dtype == torch.float32 or head_dim == 256 else "")
-    assert counts.get(fwd, 0) > 0 and counts.get("paged_attention" + simt, 0) > 0, counts
+    assert counts.get("flash_fwd" + simt, 0) > 0, counts
+    assert counts.get("paged_attention" + simt, 0) > 0, counts
+    # bf16 (D256 included) never reaches the CUDA-core forward, fp32 only it
+    assert not counts.get("flash_fwd" + ("_simt" if dtype == torch.bfloat16 else ""), 0), counts
+    assert not counts.get("flash_fwd_lse_simt", 0), counts
     assert all(len(t) == 6 for t in got)
     if dtype == torch.float32:
         cpu = LLMEngine(cfg, params, device="cpu", num_slots=2, max_seq_len=128, page_size=16,

@@ -85,6 +85,10 @@ ATTN_CASES = [
     (2, 48, 112, 4, 2, 32, True),    # Sq < Skv, bottom-right causal
     (1, 50, 50, 2, 1, 64, True),     # ragged (not a block multiple)
     (1, 37, 91, 4, 2, 32, False),    # ragged non-causal, Sq < Skv
+    # head dim 256: the bf16 forward kernel's widest instance on the card
+    (1, 64, 64, 8, 2, 256, True),    # group 4, causal
+    (1, 50, 50, 8, 1, 256, True),    # group 8, ragged
+    (1, 37, 91, 4, 4, 256, False),   # group 1, ragged non-causal, Sq < Skv
 ]
 
 
@@ -119,14 +123,44 @@ def test_attention_matches_jax_reference_and_interpret_kernel(b, sq, skv, hq, hk
     (64, True, True),     # ... and the backward kernels
     (32, False, False),   # tiny: D32
     (32, True, False),
-    (256, False, True),   # D256: the CUDA-core kernels
-    (256, True, True),
+    (256, False, True),   # D256: the tensor-core forward in bf16 (CUDA cores in fp32)
+    (256, True, True),    # ... and the CUDA-core backward
     (384, False, False),
 ])
 def test_flash_dispatch_rule(d, grad, tiles):
     """Only the head dim decides: a dtype or layout the kernels do not take
     at a head dim they tile goes to the wrappers, which raise."""
     assert ta.flash_tiles(d, grad) is tiles
+
+
+@pytest.mark.parametrize("kernel,dtype,d,simt", [
+    ("flash_fwd", torch.bfloat16, 256, False),     # the tensor-core forward at D256
+    ("flash_bwd_dq", torch.bfloat16, 256, True),   # the D256 backward on the CUDA cores
+    ("flash_bwd_dkv", torch.bfloat16, 256, True),
+    ("flash_fwd", torch.bfloat16, 64, False),
+    ("flash_fwd", torch.bfloat16, 128, False),
+    ("flash_bwd_dq", torch.bfloat16, 64, False),
+    ("flash_bwd_dkv", torch.bfloat16, 128, False),
+    ("flash_fwd", torch.float32, 64, True),        # fp32: the CUDA cores at every head dim
+    ("flash_fwd", torch.float32, 128, True),
+    ("flash_fwd", torch.float32, 256, True),
+    ("flash_bwd_dq", torch.float32, 128, True),
+    ("flash_bwd_dkv", torch.float32, 256, True),
+])
+def test_simt_route(kernel, dtype, d, simt):
+    """Which kernels a CUDA call reaches, by kernel, dtype and head dim."""
+    assert ta.simt_route(kernel, dtype, d) is simt
+
+
+@pytest.mark.parametrize("kernel,dtype,d,match", [
+    ("flash_fwd", torch.bfloat16, 384, "head_dim"),
+    ("flash_bwd_dq", torch.float32, 384, "head_dim"),
+    ("flash_fwd", torch.float16, 128, "bfloat16 or float32"),
+    ("flash_bwd_dkv", torch.float16, 256, "bfloat16 or float32"),
+])
+def test_simt_route_raises_on_what_no_kernel_takes(kernel, dtype, d, match):
+    with pytest.raises(ValueError, match=match):
+        ta.simt_route(kernel, dtype, d)
 
 
 @pytest.mark.parametrize("grad", [False, True])
