@@ -108,13 +108,16 @@ Phases, all of them on every run, in this order:
            plain versions at 5 shapes (groups 1, 4 and 8, ragged, not
            causal, Sq < Skv), twice bitwise equal, then timed at the c5
            prefill shape (B8 S128, 8 q heads over 2) and at B8 S2048 beside
-           SDPA's forward and the bound; (c) every CUDA-core kernel of
-           csrc/attention_simt.cu in fp32 at D64/128/256 (atol = rtol =
-           2e-5), and its bf16 D256 dQ and dK/dV fed by the tensor-core
-           forward's lse and out_lo, against their plain versions, then
-           timed at the c5 paths' shapes beside SDPA and their bound (fp32
-           operations at the CUDA cores' fp32 peak; bf16 at the bf16
-           tensor-core peak); (d) LLMEngine at llama_1b's width with 2
+           SDPA's forward and the bound; (b') K2 and K3 at D256 in bf16
+           (flash_bwd.cu's D256 instances) fed by the tensor-core forward's
+           lse and out_lo, against their plain versions at the same 5
+           shapes, twice bitwise equal, then timed at the same two shapes
+           beside SDPA's backward and the bound, with their ptxas registers
+           and spills (a spill fails the phase); (c) every CUDA-core kernel
+           of csrc/attention_simt.cu in fp32 at D64/128/256 (atol = rtol =
+           2e-5) against its plain version, then timed at the c5 paths'
+           shapes beside SDPA and its bound (fp32 operations at the CUDA
+           cores' fp32 peak); (d) LLMEngine at llama_1b's width with 2
            layers for MHA, group 8 and D256 in bf16 and group 4 in fp32, 8
            requests each, exact launches of each route's kernels, fp32
            tokens equal to the plain path's (bf16: how many requests'
@@ -123,8 +126,8 @@ Phases, all of them on every run, in this order:
            (relative norm, leaf by leaf), then 3 train steps at a nonzero
            learning rate from the first update, each loss; (f) bf16
            training of the D256 config (B2 S512): loss and gradients against
-           the plain path, then 3 steps with exact launches of K1' (tensor
-           cores) and the CUDA-core dQ and dK/dV.
+           the plain path, then 3 steps with exact launches of K1', K2 and
+           K3 (all on the tensor cores).
   data     512 seeded 224 px PNGs through read_images, map_batches,
            streaming_split(1) and iter_torch_batches(batch_size=32) into 20
            ViT-L/16 steps (ray_tpu_torch.bench_data_train): images/s, the
@@ -225,11 +228,12 @@ launches_cluster_apps, from the cluster_apps phase's replica behind the RPC
 ingress; all five carry launches_ops_shell, from the ops_shell phase's
 actor on the autoscaled node: its 4 prompts for the first two, its 3 train
 steps for the other three; the CUDA-core kernels' launches come from the c5
-phase's fp32 engine and its fp32 train steps; flash_fwd_lse and the
-CUDA-core dQ and dK/dV also carry launches_c5_d256, from the c5 phase's
-bf16 D256 train steps). flash_fwd's and flash_fwd_lse's entries also carry
-the D256 instance's numbers, keys suffixed _d256 (the c5 prefill shape)
-and _d256_s2048 (B8 S2048), and its ptxas registers and spills;
+phase's fp32 engine and its fp32 train steps; flash_fwd_lse, flash_bwd_dq
+and flash_bwd_dkv also carry launches_c5_d256, from the c5 phase's bf16
+D256 train steps). The entries of flash_fwd, flash_fwd_lse, flash_bwd_dq
+and flash_bwd_dkv also carry their D256 instances' numbers, keys suffixed
+_d256 (the c5 prefill shape) and _d256_s2048 (B8 S2048), and their ptxas
+registers and spills;
 paged_attention's the c5 phase's widened shapes, keys suffixed
 _g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
 """
@@ -412,8 +416,14 @@ def ptxas_summary(log: str) -> dict:
                 inst = (f"{kern.group(1)}<"
                         + ", ".join("bf16" if a[1] else "f32" if a[2] else a[0] for a in args)
                         + ">")
-            else:
-                inst = mangled
+            else:  # no template: the last of its length-prefixed names
+                parts, i = [], 3 if mangled.startswith("_ZN") else 2
+                while i < len(mangled) and mangled[i].isdigit():
+                    n = re.match(r"\d+", mangled[i:]).group()
+                    i += len(n)
+                    parts.append(mangled[i:i + int(n)])
+                    i += int(n)
+                inst = parts[-1] if parts else mangled
             out[inst] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -2267,18 +2277,17 @@ def phase_rl_platform(ctx):
 
 
 # --------------------------------------------------------------------------- #
-# c5: K4 at any GQA group and at D256; fp32 (and bf16 at D256) through the
-# CUDA-core kernels of attention_simt.cu; llama_1b's width at 2 layers served
-# and trained in those shapes and dtypes
+# c5: K4 at any GQA group and at D256; bf16 attention at D256 on the tensor
+# cores; fp32 through the CUDA-core kernels of attention_simt.cu; llama_1b's
+# width at 2 layers served and trained in those shapes and dtypes
 # --------------------------------------------------------------------------- #
 SIMT_SRC = "ray_tpu_torch/csrc/attention_simt.cu"
 # fp32 kernels against their plain versions (fp32 math, full fp32 products):
 # the JAX tests' fp32 flash tolerance (tests/test_ops_attention.py),
 # elementwise |kernel - plain| <= F32_TOL + F32_TOL |plain|
 F32_TOL = 2e-5
-# fp32 FLOP/s on the CUDA cores (NVIDIA's data sheets, dense): the fp32
-# SIMT kernels' bound is their operations at this rate; the bf16 instances'
-# is at the card's bf16 tensor-core peak, the peak for their inputs' type
+# fp32 FLOP/s on the CUDA cores (NVIDIA's data sheets, dense): the SIMT
+# kernels' bound is their operations at this rate
 FP32_FLOPS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H200 SXM": 67e12}
 # K4's widened shapes (nh, n_kv, D): groups 1, 2, 8, 16 and 32 at D128, group
 # 4 at D256
@@ -2294,8 +2303,9 @@ C5_TRAIN_ATTN = (2, 512, 512, 16, 4, 128, True)
 # training shape, B8 S2048 causal: the same 137 GFLOP of causal products as
 # llama_1b's K1' shape, where the D256 forward is also timed
 D256_TRAIN_ATTN = (8, 2048, 2048, 8, 2, 256, True)
-# the D256 tensor-core forward against its plain version: the two timed
-# shapes, then groups 4, 1 and 8 with ragged, non-causal and Sq < Skv rows
+# the D256 tensor-core forward and backward against their plain versions:
+# the two timed shapes, then groups 4, 1 and 8 with ragged, non-causal and
+# Sq < Skv rows
 D256_FWD_CHECKS = (C5_PREFILL_D256, D256_TRAIN_ATTN, (2, 100, 300, 8, 2, 256, True),
                    (1, 196, 196, 4, 4, 256, False), (1, 65, 200, 8, 1, 256, True))
 C5_ENGINE_KW = dict(paged=True, num_slots=8, page_size=64, decode_chunk=8, max_seq_len=512,
@@ -2337,6 +2347,7 @@ def phase_c5(ctx):
     torch.backends.cudnn.allow_tf32 = False
     ctx["c5"] = {"k4_widened": _c5_paged_widened(ctx)}
     _c5_d256_forward(ctx)
+    _c5_d256_backward(ctx)
     _c5_simt_kernels(ctx)
     _c5_serve(ctx)
     _c5_train(ctx)
@@ -2479,11 +2490,104 @@ def _c5_d256_forward(ctx):
         torch.cuda.empty_cache()
 
 
+def _c5_d256_backward(ctx):
+    """K2 and K3 at head dim 256 in bf16 (flash_bwd.cu's D256 instances),
+    fed by the tensor-core forward's lse and out_lo, against their plain
+    versions at each D256_FWD_CHECKS shape (the bf16 gradient tolerances of
+    the kernels phase), each launched twice, bitwise equal; their ptxas
+    registers and spills (a spill fails the phase). Then each timed at the
+    c5 prefill shape and at B8 S2048, event-timed (``ms``) and inside a CUDA
+    graph (``device_ms``: the device alone), beside its plain version,
+    SDPA's backward (dq, dk and dv together) and its bound; the numbers go
+    on K2's and K3's entries of the kernels line, keys suffixed _d256 and
+    _d256_s2048."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as ta
+
+    errs = {"k2": [], "k3": []}
+    for i, shape in enumerate(D256_FWD_CHECKS):
+        causal, scale = shape[-1], shape[5] ** -0.5
+        q, k, v, dout = _case(torch, shape, 540 + i, torch.bfloat16)
+        out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+        delta = ta._delta(out, dout, out_lo)
+        dqs = [ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale) for _ in range(2)]
+        dkvs = [ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale) for _ in range(2)]
+        torch.cuda.synchronize()
+        require(torch.equal(*dqs) and all(torch.equal(a, b) for a, b in zip(*dkvs)),
+                f"c5 D256 backward {shape}: two launches differ")
+        ratios = {}
+        ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
+        for what, key, got, ref in (("flash_bwd_dq dq", "k2", dqs[0], ref_dq),
+                                    *zip(("flash_bwd_dkv dk", "flash_bwd_dkv dv"), ("k3", "k3"),
+                                         dkvs[0], ta.flash_bwd_dkv_reference(
+                                             q, k, v, dout, lse, delta, causal, scale))):
+            require(bool(torch.isfinite(got).all()), f"c5 {what} D256 {shape}: non-finite")
+            ratios[what] = _grad_ratio(got, ref)
+            errs[key].append((got.float() - ref.float()).abs().max().item())
+        print(f"c5 D256 backward (flash_bwd.cu) {shape}: max_abs_err dq {errs['k2'][-1]:.3e}, "
+              f"dk/dv {max(errs['k3'][-2:]):.3e}; worst error / (tol {GRAD_ATOL} max|plain| + "
+              f"{KERNEL_RTOL} |plain|) {({w: round(r, 3) for w, r in ratios.items()})} (must be "
+              "<= 1); bitwise repeatable", flush=True)
+        for what, ratio in ratios.items():
+            require(ratio <= 1.0, f"c5 {what} D256 {shape} disagrees: {ratio}")
+        del q, k, v, dout, out, lse, out_lo, delta, dqs, dkvs, ref_dq
+        torch.cuda.empty_cache()
+
+    for key, inst in (("k2", "flash_bwd_dq_d256_kernel"), ("k3", "flash_bwd_dkv_d256_kernel")):
+        rep = ctx["ptxas"]["flash_bwd"].get(inst, {})
+        ctx[key].update({f"{k}_d256": rep.get(k) for k in
+                         ("registers", "spill_stores", "spill_loads")})
+        print(f"c5 {inst} (ptxas): {rep}", flush=True)
+        require(rep.get("registers") is not None and not rep["spill_stores"]
+                and not rep["spill_loads"], f"c5 {inst}: ptxas reports spills or no entry: {rep}")
+    for suffix, shape in (("_d256", C5_PREFILL_D256), ("_d256_s2048", D256_TRAIN_ATTN)):
+        b, sq, skv, hq, hkv, d, causal = shape
+        scale = d ** -0.5
+        sets, graphs = [], []
+        for i in range(2):
+            q, k, v, dout = _case(torch, shape, 560 + i, torch.bfloat16)
+            out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+            sets.append((q, k, v, dout, lse, ta._delta(out, dout, out_lo)))
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+            graphs.append((o, leaves, dout.transpose(1, 2)))
+        lib = cuda_ms(torch, lambda o, leaves, g: torch.autograd.grad(
+            o, leaves, g, retain_graph=True), graphs)
+        del graphs
+        pairs = _visible_pairs(sq, skv, causal)
+        q_el, kv_el, rows = b * sq * hq * d, b * skv * hkv * d, b * hq * sq
+        fns = {"k2": (lambda *a: ta.flash_bwd_dq(*a, causal, scale),
+                      lambda *a: ta.flash_bwd_dq_reference(*a, causal, scale),
+                      6.0 * b * hq * d * pairs, 2.0 * (3 * q_el + 2 * kv_el) + 8.0 * rows),
+               "k3": (lambda *a: ta.flash_bwd_dkv(*a, causal, scale),
+                      lambda *a: ta.flash_bwd_dkv_reference(*a, causal, scale),
+                      8.0 * b * hq * d * pairs, 2.0 * (2 * q_el + 4 * kv_el) + 8.0 * rows)}
+        total = 0.0
+        for key, (fn, plain, flops, nbytes) in fns.items():
+            ms = cuda_ms(torch, fn, sets)
+            dev_ms = graph_ms(torch, fn, sets)
+            plain_ms = cuda_ms(torch, plain, sets, iters=3, warmup=1)
+            bms, by = bound_ms(flops, nbytes, ctx["peaks"])
+            total += ms
+            ctx[key].update({f"ms{suffix}": ms, f"device_ms{suffix}": dev_ms,
+                             f"plain_ms{suffix}": plain_ms, f"library_ms{suffix}": lib,
+                             f"bound_ms{suffix}": bms, f"bound_by{suffix}": by,
+                             f"max_abs_err{suffix}": max(errs[key]),
+                             f"shape{suffix}": list(shape)})
+            print(f"c5 {ctx[key]['name']} D256 (tensor cores) {shape}: {ms:.5f} ms, device "
+                  f"(graph) {dev_ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bms:.5f} ms ({by}: "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.4f} GB) on {ctx['card']}", flush=True)
+        print(f"c5 D256 backward {shape}: flash_bwd_dq + flash_bwd_dkv {total:.5f} ms, SDPA "
+              f"backward (dq, dk and dv together) {lib:.5f} ms on {ctx['card']}", flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
 def _c5_simt_kernels(ctx):
-    """Every SIMT kernel against its plain version: fp32 at D64/128/256
-    (F32_TOL), and the bf16 D256 backward (dQ, dK/dV) fed by the
-    tensor-core forward's lse and out_lo (the bf16 tolerances of the kernels
-    phase); then each timed at the c5 paths' shapes, beside its plain
+    """Every SIMT kernel against its plain version in fp32 at D64/128/256
+    (F32_TOL); then each timed at the c5 paths' shapes, beside its plain
     version, SDPA where one call computes the same function, and its
     bound."""
     import torch
@@ -2492,17 +2596,13 @@ def _c5_simt_kernels(ctx):
     from ray_tpu_torch.ops import attention as ta
 
     errs = {k: [] for k in ("k1s", "k1ls", "k2s", "k3s", "k4s")}
-    cases = [(dtype, (b, sq, skv, hq, hkv, d, causal))
-             for d in (64, 128, 256)
-             for dtype, b, sq, skv, hq, hkv, causal in (
-                 (torch.float32, 2, 100, 300, 8, 2, True), (torch.float32, 2, 77, 50, 4, 1, False),
-                 (torch.float32, 1, 129, 129, 4, 4, True))]
-    cases += [(torch.bfloat16, (2, 100, 300, 8, 2, 256, True)),
-              (torch.bfloat16, (1, 196, 196, 4, 4, 256, False))]
-    for i, (dtype, shape) in enumerate(cases):
+    cases = [(b, sq, skv, hq, hkv, d, causal) for d in (64, 128, 256)
+             for b, sq, skv, hq, hkv, causal in ((2, 100, 300, 8, 2, True),
+                                                 (2, 77, 50, 4, 1, False),
+                                                 (1, 129, 129, 4, 4, True))]
+    for i, shape in enumerate(cases):
         causal, scale = shape[-1], shape[5] ** -0.5
-        q, k, v, dout = _case(torch, shape, 200 + i, dtype)
-        f32 = dtype == torch.float32
+        q, k, v, dout = _case(torch, shape, 200 + i, torch.float32)
         out = ta.flash_attention(q, k, v, causal=causal)
         out_l, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
         delta = ta._delta(out_l, dout, out_lo)
@@ -2512,27 +2612,21 @@ def _c5_simt_kernels(ctx):
         ref, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
         ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
         ref_dk, ref_dv = ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
-        lse_ratio = ((lse - ref_lse).abs() / (LSE_ATOL + LSE_RTOL * ref_lse.abs())).max().item()
-        # the bf16 D256 forward is the tensor-core kernel, held in _c5_d256_forward
         checks = [("k1s", "flash_fwd_simt out", out, ref),
-                  ("k1ls", "flash_fwd_lse_simt out", out_l, ref)] if f32 else []
-        checks += [("k2s", "flash_bwd_dq_simt dq", dq, ref_dq),
-                   ("k3s", "flash_bwd_dkv_simt dk", dk, ref_dk),
-                   ("k3s", "flash_bwd_dkv_simt dv", dv, ref_dv)]
+                  ("k1ls", "flash_fwd_lse_simt out", out_l, ref),
+                  ("k2s", "flash_bwd_dq_simt dq", dq, ref_dq),
+                  ("k3s", "flash_bwd_dkv_simt dk", dk, ref_dk),
+                  ("k3s", "flash_bwd_dkv_simt dv", dv, ref_dv)]
         for key, what, got, want in checks:
-            ratio = (_f32_ratio(got, want) if f32 else
-                     close_ratio(got, want) if key in ("k1s", "k1ls") else _grad_ratio(got, want))
-            err = (got.float() - want.float()).abs().max().item()
-            errs[key].append(err)
+            ratio = _f32_ratio(got, want)
+            errs[key].append((got.float() - want.float()).abs().max().item())
             require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
-                    f"c5 {what} {dtype} {shape}: worst error / tolerance {ratio}")
-        require((_f32_ratio(lse, ref_lse) if f32 else lse_ratio) <= 1.0,
-                f"c5 flash_fwd_lse lse {dtype} {shape} disagrees")
-        require(not f32 or not out_lo.any(), "c5: fp32 out_lo is not zero")
-        print(f"c5 SIMT flash kernels {str(dtype)[6:]} {shape}: max_abs_err "
-              + (f"out {errs['k1s'][-1]:.3e}, " if f32 else "(forward on the tensor cores) ")
-              + f"dq {errs['k2s'][-1]:.3e}, dk/dv {errs['k3s'][-1]:.3e} "
-              f"(tol {'atol = rtol = ' + str(F32_TOL) if f32 else 'bf16'})", flush=True)
+                    f"c5 {what} fp32 {shape}: worst error / tolerance {ratio}")
+        require(_f32_ratio(lse, ref_lse) <= 1.0, f"c5 flash_fwd_lse lse fp32 {shape} disagrees")
+        require(not out_lo.any(), "c5: fp32 out_lo is not zero")
+        print(f"c5 SIMT flash kernels float32 {shape}: max_abs_err out {errs['k1s'][-1]:.3e}, "
+              f"dq {errs['k2s'][-1]:.3e}, dk/dv {errs['k3s'][-1]:.3e} (tol atol = rtol = "
+              f"{F32_TOL})", flush=True)
         del q, k, v, dout, out, out_l, lse, out_lo, delta, dq, dk, dv, ref, ref_lse, ref_dq, \
             ref_dk, ref_dv
     for nh, nkv, D in ((8, 2, 64), (16, 4, 128), (16, 16, 128), (8, 2, 256)):
@@ -2563,20 +2657,20 @@ def _c5_time_simt(ctx, errs):
                                               v.transpose(1, 2), is_causal=causal,
                                               enable_gqa=True)
 
-    def work(shape, esize):
+    def work(shape):
         b, sq, skv, hq, hkv, d, causal = shape
         pairs = _visible_pairs(sq, skv, causal)
         q_el, kv_el, rows = b * sq * hq * d, b * skv * hkv * d, b * hq * sq
-        return {"fwd": (4.0 * b * hq * d * pairs, esize * (2 * q_el + 2 * kv_el)),
-                "fwd_lse": (4.0 * b * hq * d * pairs, esize * (3 * q_el + 2 * kv_el) + 4.0 * rows),
-                "dq": (6.0 * b * hq * d * pairs, esize * (3 * q_el + 2 * kv_el) + 8.0 * rows),
-                "dkv": (8.0 * b * hq * d * pairs, esize * (2 * q_el + 4 * kv_el) + 8.0 * rows)}
+        return {"fwd": (4.0 * b * hq * d * pairs, 4.0 * (2 * q_el + 2 * kv_el)),
+                "fwd_lse": (4.0 * b * hq * d * pairs, 4.0 * (3 * q_el + 2 * kv_el) + 4.0 * rows),
+                "dq": (6.0 * b * hq * d * pairs, 4.0 * (3 * q_el + 2 * kv_el) + 8.0 * rows),
+                "dkv": (8.0 * b * hq * d * pairs, 4.0 * (2 * q_el + 4 * kv_el) + 8.0 * rows)}
 
-    def timed(shape, dtype, seed, peaks, esize, names=("fwd", "fwd_lse", "dq", "dkv")):
+    def timed(shape, seed):
         causal, scale = shape[-1], shape[5] ** -0.5
         sets = []
         for i in range(2):
-            q, k, v, dout = _case(torch, shape, seed + i, dtype)
+            q, k, v, dout = _case(torch, shape, seed + i, torch.float32)
             out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
             sets.append((q, k, v, dout, lse, ta._delta(out, dout, out_lo)))
         graphs = []
@@ -2598,23 +2692,20 @@ def _c5_time_simt(ctx, errs):
                "dkv": (lambda *a: ta.flash_bwd_dkv(*a, causal, scale),
                        lambda *a: ta.flash_bwd_dkv_reference(*a, causal, scale), lib_bwd)}
         res = {}
-        for name in names:
-            fn, plain, lib = fns[name]
+        for name, (fn, plain, lib) in fns.items():
             ms = cuda_ms(torch, fn, sets, iters=5, warmup=1)
             plain_ms = cuda_ms(torch, plain, sets, iters=3, warmup=1)
-            bms, by = bound_ms(*work(shape, esize)[name], peaks)
+            bms, by = bound_ms(*work(shape)[name], f32_peaks)
             res[name] = (ms, plain_ms, lib, bms, by)
-            print(f"c5 {name} SIMT {str(dtype)[6:]} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} "
+            print(f"c5 {name} SIMT float32 {shape}: {ms:.4f} ms, plain {plain_ms:.4f} "
                   f"ms, SDPA {lib:.4f} ms ({'forward' if name.startswith('fwd') else 'backward, dq dk dv together'}), "
                   f"bound {bms:.4f} ms ({by}) on {ctx['card']}", flush=True)
         del sets, graphs
         torch.cuda.empty_cache()
         return res
 
-    prefill = timed(C5_PREFILL_ATTN, torch.float32, 400, f32_peaks, 4.0)
-    train = timed(C5_TRAIN_ATTN, torch.float32, 410, f32_peaks, 4.0)
-    # bf16 at D256 only the backward runs on the CUDA cores
-    d256 = timed(C5_PREFILL_D256, torch.bfloat16, 420, ctx["peaks"], 2.0, names=("dq", "dkv"))
+    prefill = timed(C5_PREFILL_ATTN, 400)
+    train = timed(C5_TRAIN_ATTN, 410)
     meta = {"k1s": ("flash_fwd_simt", "ray_tpu/ops/attention.py:71", prefill["fwd"],
                     C5_PREFILL_ATTN),
             "k1ls": ("flash_fwd_lse_simt", "ray_tpu/ops/attention.py:155", train["fwd_lse"],
@@ -2627,12 +2718,6 @@ def _c5_time_simt(ctx, errs):
         ctx[key] = {"name": name, "route": "cuda", "source": SIMT_SRC, "replaces": replaces,
                     "max_abs_err": max(errs[key]), "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by, "library_ms": lib, "shape": list(shape)}
-        if key in ("k2s", "k3s"):
-            sub = d256["dq" if key == "k2s" else "dkv"]
-            ctx[key].update({"ms_bf16_d256": sub[0], "plain_ms_bf16_d256": sub[1],
-                             "library_ms_bf16_d256": sub[2], "bound_ms_bf16_d256": sub[3],
-                             "bound_by_bf16_d256": sub[4],
-                             "shape_bf16_d256": list(C5_PREFILL_D256)})
     # paged_attention_simt at the c5 fp32 engine's decode: 8 slots of
     # llama_1b's heads, fp32, 1..512 rows on 64-row pages
     sets = [_paged_inputs(torch, 430 + i, 8, 1, 512, 65, 1, 16, 4, 128, max_pages=8,
@@ -2852,8 +2937,8 @@ def _c5_train(ctx):
 def _c5_train_d256(ctx):
     """bf16 training of the c5 D256 config (llama_1b's width as 8 q heads of
     256 over 2, C5_LAYERS layers, save_attn, B2 S512): the tensor-core
-    forward with lse (K1') and the CUDA-core dQ and dK/dV fed by its lse and
-    out_lo. The loss and every gradient from the seed-0 state against the
+    forward with lse (K1') and the tensor-core dQ and dK/dV (K2, K3) fed by
+    its lse and out_lo. The loss and every gradient from the seed-0 state against the
     same work through the plain versions (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL,
     as the train phase holds llama_1b); then 3 train steps, each launching
     each of the three kernels once a layer and no plain version."""
@@ -2875,8 +2960,7 @@ def _c5_train_d256(ctx):
     b, s = C5_TRAIN_ATTN[0], C5_TRAIN_ATTN[1]
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
     targets = torch.roll(tokens, -1, dims=1)
-    want = {"flash_fwd_lse": C5_LAYERS, "flash_bwd_dq_simt": C5_LAYERS,
-            "flash_bwd_dkv_simt": C5_LAYERS}
+    want = {"flash_fwd_lse": C5_LAYERS, "flash_bwd_dq": C5_LAYERS, "flash_bwd_dkv": C5_LAYERS}
     state = make_train_state_factory(cfg, opt)(seed=0, device="cuda")
     names, leaves = grad_leaves(state.params)
 
@@ -4268,6 +4352,8 @@ def main() -> int:
                 entry["name"], 0)
             # and in the ops_shell phase's actor on the autoscaled node (3 steps)
             entry["launches_ops_shell"] = ctx["ops_shell_train_launches"].get(entry["name"], 0)
+            # and in the c5 phase's bf16 D256 train steps
+            entry["launches_c5_d256"] = ctx["c5_train_d256_launches"].get(entry["name"], 0)
         elif key in ("k1", "k4"):  # in the serve_app phase's 64 requests through serve
             entry["launches_serve_app"] = ctx["serve_app_launches"].get(entry["name"], 0)
             # and in the c5 phase's bf16 engines (groups 1 and 8, and D256)
@@ -4282,8 +4368,6 @@ def main() -> int:
                 entry["name"], 0)
             # and in the ops_shell phase's actor on the autoscaled node (4 prompts)
             entry["launches_ops_shell"] = ctx["ops_shell_serve_launches"].get(entry["name"], 0)
-        if key in ("k1l", "k2s", "k3s"):  # the c5 phase's bf16 D256 train steps
-            entry["launches_c5_d256"] = ctx["c5_train_d256_launches"].get(entry["name"], 0)
         kernels.append(entry)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -13,11 +13,11 @@ and calls only what every checkout since the flash backward (K2, K3) has:
 and ``flash_bwd_dkv``.
 The shapes are llama_1b's training attention (B8, S2048, 16 q heads over 4,
 D128, causal), ViT-L/16's (B32, S196, 16 heads over 16, D64, not causal)
-and, for the forward alone (K1' and K1, ``flash_attention``), llama_1b's
-width as 8 q heads of 256 over 2 at the training shape (B8 S2048, causal)
-and at the prefill of 8 prompts of 128 tokens (B8 S128): a checkout that
-routes bf16 at D256 to the CUDA cores times those kernels there. A shape a
-checkout's kernels refuse is reported as null. K4
+and llama_1b's width as 8 q heads of 256 over 2 at the training shape (B8
+S2048, causal) and at the prefill of 8 prompts of 128 tokens (B8 S128),
+where K1 (``flash_attention``) is timed too: a checkout that routes bf16
+at D256 to the CUDA cores times those kernels there. A shape a checkout's
+kernels refuse is reported as null. K4
 (``models.paged_decode.paged_attention``, in every checkout) is timed at
 the serving table: 64 slots of 1..512 rows on 64-row pages, a 32-page
 table, 16 q heads over 4 of D128, bf16. Each line of output is one
@@ -42,7 +42,7 @@ SHAPES = {"llama_1b": (8, 2048, 2048, 16, 4, 128, True),
           "vit_l": (32, 196, 196, 16, 16, 64, False),
           "d256": (8, 2048, 2048, 8, 2, 256, True),
           "d256_prefill": (8, 128, 128, 8, 2, 256, True)}
-FORWARD_ONLY = ("d256", "d256_prefill")
+WITH_K1 = ("d256", "d256_prefill")  # shapes where the serving forward is timed as well
 ROUNDS = 5  # rounds of 200 K4 wrapper calls timed on the host clock
 
 
@@ -115,8 +115,8 @@ def time_paged(torch, pd) -> dict:
 
 
 def time_checkout(root: str, paged_only: bool = False) -> dict:
-    """Times of K1', K2, K3 and K4 (only K4 with ``paged_only``), and of K1'
-    and K1 at D256, from the checkout at ``root`` (run in a fresh process:
+    """Times of K1', K2, K3 and K4 (only K4 with ``paged_only``), and of K1
+    at D256, from the checkout at ``root`` (run in a fresh process:
     it imports that checkout's package), with the launch counts of the
     calls (which kernels ran)."""
     sys.path.insert(0, root)
@@ -140,10 +140,10 @@ def time_checkout(root: str, paged_only: bool = False) -> dict:
             sets.append((q, k, v, dout, lse, ta._delta(out, dout)))
         times = {"flash_fwd_lse": _ms(torch, lambda q, k, v, *_: ta.flash_attention_lse(
             q, k, v, causal), sets)}
-        if name in FORWARD_ONLY:
+        if name in WITH_K1:
             times["flash_fwd"] = _ms(torch, lambda q, k, v, *_: ta.flash_attention(
                 q, k, v, causal), sets)
-        for kernel in () if name in FORWARD_ONLY else ("flash_bwd_dq", "flash_bwd_dkv"):
+        for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
             fn = getattr(ta, kernel)
             try:
                 times[kernel] = _ms(torch, lambda *a: fn(*a, causal, scale), sets)

@@ -1,6 +1,6 @@
-// Attention on the CUDA cores for Hopper (sm_90a), in fp32 and bf16 storage:
-// the flash forward (with or without lse), its two backward kernels (dQ, and
-// dK/dV summed over the GQA group), and paged decode.
+// Attention on the CUDA cores for Hopper (sm_90a), in fp32: the flash forward
+// (with or without lse), its two backward kernels (dQ, and dK/dV summed over
+// the GQA group), and paged decode.
 //
 // Replaces, for the shapes the tensor-core kernels do not take:
 //   ray_tpu/ops/attention.py:_flash_fwd_kernel (:71), with and without lse;
@@ -9,20 +9,18 @@
 //   the Pallas library's paged_attention as called by
 //   ray_tpu/models/paged_decode.py:_paged_attention (:93).
 // The reference runs its kernels in any dtype. The bf16 kernels of
-// flash_fwd.cu (wgmma) tile head dims 64, 128 and 256, those of flash_bwd.cu
-// 64 and 128, and paged_attention.cu (mma.sync) bf16 at 128 and 256. This
-// file takes the rest of what the port's dispatch sends to a kernel: fp32 at
-// head dims 64, 128 and 256 (all four kernels), and bf16 at head dim 256 for
-// the two backward kernels (dQ, dK/dV). The forward is fp32 only.
+// flash_fwd.cu and flash_bwd.cu (wgmma) tile head dims 64, 128 and 256, and
+// paged_attention.cu (mma.sync) bf16 at 128 and 256. This file takes the
+// rest of what the port's dispatch sends to a kernel: fp32 at head dims 64,
+// 128 and 256, for all four kernels.
 //
 // Precision. fp32 attention is computed with full fp32 products (FFMA on the
 // CUDA cores), not TF32 on the tensor cores: the plain version on the card is
 // full fp32 (torch's float32 matmuls do not use TF32 by default), the JAX
 // tests hold flash against its reference in fp32 at 2e-5, and TF32 keeps
-// about three decimal digits. Sums and exponentials are fp32 in both storage
-// types (expf, logf: no approximate intrinsics). The reference's rounding
-// points are kept: p is rounded to the value dtype before P.V and P^T.dO, and
-// ds to the q/k dtype before dS.K and dS^T.Q (identities in fp32).
+// about three decimal digits. Sums and exponentials are fp32 (expf, logf: no
+// approximate intrinsics). The reference rounds p and ds to the operands'
+// dtype before their products: in fp32 that is no rounding at all.
 //
 // Bound: at the shapes these kernels see, the products are operations on the
 // CUDA cores (the H100's fp32 rate, 67 TFLOP/s, is 1/15 of bf16 on the tensor
@@ -50,12 +48,9 @@
 // pools [n_kv, total_pages, page_size, D], table [B, max_pages] int32, lengths
 // [B] int32, q/out [B, nh, D]. All contiguous.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -66,19 +61,7 @@ constexpr int TPR = NT / BR;   // threads a row: 8 lanes of one warp
 constexpr int CPT = BC / TPR;  // streamed rows a thread scores: 8
 constexpr int PLD = BC + 1;    // row stride of the p / ds tiles
 constexpr float NEG = -1e30f;
-constexpr int F32 = 0, BF16 = 1;  // the entries' dtype codes
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-// x rounded to T and back: one of the reference's rounding points
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+constexpr int F32 = 0;  // the entries' dtype code (the wrappers pass 1 for bf16, refused)
 
 // Over the 8 lanes of a row (lanes 8 k .. 8 k + 7 of a warp).
 __device__ __forceinline__ float row_max(float v) {
@@ -94,12 +77,12 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // Rows row0 .. row0 + n - 1 of a [rows, stride] matrix (columns 0 .. D - 1)
 // into dst [n][D + 1] as fp32, zeros past row_end.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long stride, int row0, int n,
-                                          int row_end) {
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long stride, int row0,
+                                          int n, int row_end) {
   for (int i = threadIdx.x; i < n * D; i += NT) {
     const int r = i / D, d = i % D;
-    dst[r * (D + 1) + d] = row0 + r < row_end ? to_f(src[(long)(row0 + r) * stride + d]) : 0.f;
+    dst[r * (D + 1) + d] = row0 + r < row_end ? src[(long)(row0 + r) * stride + d] : 0.f;
   }
 }
 
@@ -132,7 +115,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   const long qs = (long)Hq * D, ks = (long)Hkv * D;
   const float* kb = k + (long)b * Skv * ks + (long)hk * D;
   const float* vb = v + (long)b * Skv * ks + (long)hk * D;
-  load_rows<float, D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
+  load_rows<D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
   // keys any row of the tile sees
   const int kend = causal ? min(Skv, min(q0 + BR, Sq) + off) : Skv;
 
@@ -142,8 +125,8 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   for (int jj = 0; jj < D / TPR; ++jj) o[jj] = 0.f;
   for (int k0 = 0; k0 < kend; k0 += BC) {
     __syncthreads();  // the previous tile is consumed (and sQ is loaded)
-    load_rows<float, D>(sK, kb, ks, k0, BC, Skv);
-    load_rows<float, D>(sV, vb, ks, k0, BC, Skv);
+    load_rows<D>(sK, kb, ks, k0, BC, Skv);
+    load_rows<D>(sV, vb, ks, k0, BC, Skv);
     __syncthreads();
     float s[CPT];
     bool seen[CPT];
@@ -189,11 +172,11 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 
 // ---------------------------------------------------------------------------
 // dQ: grid (ceil(Sq / BR), Hq, B).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
           int causal, float scale) {
   constexpr int LD = D + 1;
   extern __shared__ float sm[];
@@ -209,10 +192,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
   const int qi = q0 + r;
   const long qs = (long)Hq * D, ks = (long)Hkv * D;
-  const T* kb = k + (long)b * Skv * ks + (long)hk * D;
-  const T* vb = v + (long)b * Skv * ks + (long)hk * D;
-  load_rows<T, D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
-  load_rows<T, D>(sO, dout + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
+  const float* kb = k + (long)b * Skv * ks + (long)hk * D;
+  const float* vb = v + (long)b * Skv * ks + (long)hk * D;
+  load_rows<D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
+  load_rows<D>(sO, dout + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
   const long rrow = ((long)b * Hq + h) * Sq + qi;
   const float lse_r = qi < Sq ? lse[rrow] : 0.f;
   const float delta_r = qi < Sq ? delta[rrow] : 0.f;
@@ -223,8 +206,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int jj = 0; jj < D / TPR; ++jj) acc[jj] = 0.f;
   for (int k0 = 0; k0 < kend; k0 += BC) {
     __syncthreads();
-    load_rows<T, D>(sK, kb, ks, k0, BC, Skv);
-    load_rows<T, D>(sV, vb, ks, k0, BC, Skv);
+    load_rows<D>(sK, kb, ks, k0, BC, Skv);
+    load_rows<D>(sV, vb, ks, k0, BC, Skv);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
@@ -236,7 +219,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         const float dp = dot(sO + r * LD, sV + (c + TPR * j) * LD, D);
         ds = p * (dp - delta_r) * scale;
       }
-      sS[r * PLD + c + TPR * j] = round_to<T>(ds);  // ds in the k dtype for dS.K
+      sS[r * PLD + c + TPR * j] = ds;
     }
     __syncwarp();
     for (int kk = 0; kk < BC; ++kk) {
@@ -249,16 +232,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   if (qi >= Sq) return;
   const long row = ((long)b * Sq + qi) * qs + (long)h * D;
 #pragma unroll
-  for (int jj = 0; jj < D / TPR; ++jj) dq[row + c + TPR * jj] = from_f<T>(acc[jj]);
+  for (int jj = 0; jj < D / TPR; ++jj) dq[row + c + TPR * jj] = acc[jj];
 }
 
 // ---------------------------------------------------------------------------
 // dK/dV: grid (ceil(Skv / BR), Hkv, B); the group's q heads in order.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Sq,
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           const float* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Sq,
            int Skv, int Hq, int Hkv, int causal, float scale) {
   constexpr int LD = D + 1;
   extern __shared__ float sm[];
@@ -277,8 +260,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
   const int kr = k0 + r;
   const long qs = (long)Hq * D, ks = (long)Hkv * D;
-  load_rows<T, D>(sK, k + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
-  load_rows<T, D>(sV, v + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
+  load_rows<D>(sK, k + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
+  load_rows<D>(sV, v + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
   // the first q row that sees any key of the tile
   const int qstart = causal ? max(0, k0 - off) : 0;
 
@@ -287,14 +270,14 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int jj = 0; jj < D / TPR; ++jj) gk[jj] = gv[jj] = 0.f;
   for (int gi = 0; gi < group; ++gi) {
     const int h = hk * group + gi;
-    const T* qb = q + (long)b * Sq * qs + (long)h * D;
-    const T* ob = dout + (long)b * Sq * qs + (long)h * D;
+    const float* qb = q + (long)b * Sq * qs + (long)h * D;
+    const float* ob = dout + (long)b * Sq * qs + (long)h * D;
     const float* lb = lse + ((long)b * Hq + h) * Sq;
     const float* db = delta + ((long)b * Hq + h) * Sq;
     for (int q0 = qstart; q0 < Sq; q0 += BC) {
       __syncthreads();
-      load_rows<T, D>(sQ, qb, qs, q0, BC, Sq);
-      load_rows<T, D>(sO, ob, qs, q0, BC, Sq);
+      load_rows<D>(sQ, qb, qs, q0, BC, Sq);
+      load_rows<D>(sO, ob, qs, q0, BC, Sq);
       for (int i = threadIdx.x; i < BC; i += NT) {
         sL[i] = q0 + i < Sq ? lb[q0 + i] : 0.f;
         sD[i] = q0 + i < Sq ? db[q0 + i] : 0.f;
@@ -311,8 +294,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
           const float dp = dot(sO + t * LD, sV + r * LD, D);
           ds = p * (dp - sD[t]) * scale;
         }
-        sP[r * PLD + t] = round_to<T>(p);   // p in the dO dtype for P^T.dO
-        sS[r * PLD + t] = round_to<T>(ds);  // ds in the q dtype for dS^T.Q
+        sP[r * PLD + t] = p;
+        sS[r * PLD + t] = ds;
       }
       __syncwarp();
       for (int t = 0; t < BC; ++t) {
@@ -329,8 +312,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const long row = ((long)b * Skv + kr) * ks + (long)hk * D;
 #pragma unroll
   for (int jj = 0; jj < D / TPR; ++jj) {
-    dk[row + c + TPR * jj] = from_f<T>(gk[jj]);
-    dv[row + c + TPR * jj] = from_f<T>(gv[jj]);
+    dk[row + c + TPR * jj] = gk[jj];
+    dv[row + c + TPR * jj] = gv[jj];
   }
 }
 
@@ -351,11 +334,11 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return v;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-             const T* __restrict__ v_pool, const int* __restrict__ table,
-             const int* __restrict__ lengths, T* __restrict__ out, int nh, int n_kv,
+paged_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
+             const float* __restrict__ v_pool, const int* __restrict__ table,
+             const int* __restrict__ lengths, float* __restrict__ out, int nh, int n_kv,
              int total_pages, int page_size, int max_pages) {
   constexpr int LD = D + 1;
   constexpr int OC = (D + NT - 1) / NT;  // output columns a thread
@@ -371,10 +354,10 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int len = max(0, min(lengths[b], max_pages * page_size));
   const long orow = ((long)b * nh + h) * D;
   if (len == 0) {  // lengths[b] <= 0: zeros, as paged_attention.cu writes
-    for (int d = tid; d < D; d += NT) out[orow + d] = from_f<T>(0.f);
+    for (int d = tid; d < D; d += NT) out[orow + d] = 0.f;
     return;
   }
-  for (int d = tid; d < D; d += NT) sq[d] = to_f(q[orow + d]);
+  for (int d = tid; d < D; d += NT) sq[d] = q[orow + d];
   const int* tb = table + (long)b * max_pages;
   const long pool_head = (long)g * total_pages * page_size;
 
@@ -390,8 +373,8 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       if (t < len) {
         const int page = min(max(tb[t / page_size], 0), total_pages - 1);
         const long at = (pool_head + (long)page * page_size + t % page_size) * D + d;
-        kv = to_f(k_pool[at]);
-        vv = to_f(v_pool[at]);
+        kv = k_pool[at];
+        vv = v_pool[at];
       }
       sK[rr * LD + d] = kv;
       sV[rr * LD + d] = vv;
@@ -404,7 +387,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const float m_new = fmaxf(m, block_reduce(s, red, true));
     const float alpha = expf(m - m_new);
     const float p = seen ? expf(s - m_new) : 0.f;
-    if (half == 0) sp[kr] = round_to<T>(p);  // p in the pool's dtype for P.V
+    if (half == 0) sp[kr] = p;
     l = l * alpha + block_reduce(half == 0 ? p : 0.f, red, false);
     m = m_new;
     __syncthreads();  // sp is written
@@ -422,7 +405,7 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
   for (int i = 0; i < OC; ++i) {
     const int d = tid + NT * i;
-    if (d < D) out[orow + d] = from_f<T>(o[i] * inv);
+    if (d < D) out[orow + d] = o[i] * inv;
   }
 }
 
@@ -447,46 +430,47 @@ int fwd_launch(const void* q, const void* k, const void* v, void* out, void* lse
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
               float scale, cudaStream_t st) {
   const size_t bytes = sizeof(float) * ((2 * BR + 2 * BC) * (D + 1) + BR * PLD);
-  cudaError_t err = allow_smem(dq_kernel<T, D>, bytes);
+  cudaError_t err = allow_smem(dq_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<T, D><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Skv, Hq, Hkv, causal, scale);
+  dq_kernel<D><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Skv, Hq, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int dkv_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
                int causal, float scale, cudaStream_t st) {
   const size_t bytes = sizeof(float) * ((2 * BR + 2 * BC) * (D + 1) + 2 * BR * PLD + 2 * BC);
-  cudaError_t err = allow_smem(dkv_kernel<T, D>, bytes);
+  cudaError_t err = allow_smem(dkv_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<T, D><<<dim3((Skv + BR - 1) / BR, Hkv, B), NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq,
-      Hkv, causal, scale);
+  dkv_kernel<D><<<dim3((Skv + BR - 1) / BR, Hkv, B), NT, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), Sq,
+      Skv, Hq, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int paged_launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
                  const void* lengths, void* out, int B, int nh, int n_kv, int total_pages,
                  int page_size, int max_pages, cudaStream_t st) {
   const size_t bytes = sizeof(float) * (D + 2 * PT * (D + 1) + PT + NT / 32);
-  cudaError_t err = allow_smem(paged_kernel<T, D>, bytes);
+  cudaError_t err = allow_smem(paged_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  paged_kernel<T, D><<<dim3(nh, B), NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int*>(table), static_cast<const int*>(lengths), static_cast<T*>(out), nh,
-      n_kv, total_pages, page_size, max_pages);
+  paged_kernel<D><<<dim3(nh, B), NT, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<float*>(out), nh, n_kv, total_pages,
+      page_size, max_pages);
   return (int)cudaGetLastError();
 }
 
@@ -498,13 +482,13 @@ int check_shape(int B, int Sq, int Skv, int Hq, int Hkv) {
 
 }  // namespace
 
-// The instances: fp32 at D 64, 128 and 256 for every kernel; bf16 at D 256
-// for dQ and dK/dV only (the bf16 D 256 forward is flash_fwd.cu's). Any other
+// The instances: fp32 at D 64, 128 and 256 for every kernel (bf16 is
+// flash_fwd.cu's, flash_bwd.cu's and paged_attention.cu's). Any other
 // (dtype, D) returns cudaErrorInvalidValue.
-#define SIMT_F32(CALL)                                   \
-  if (dtype == F32 && D == 64) return CALL(float, 64);   \
-  if (dtype == F32 && D == 128) return CALL(float, 128); \
-  if (dtype == F32 && D == 256) return CALL(float, 256);
+#define SIMT_F32(CALL)                            \
+  if (dtype == F32 && D == 64) return CALL(64);   \
+  if (dtype == F32 && D == 128) return CALL(128); \
+  if (dtype == F32 && D == 256) return CALL(256);
 
 extern "C" int simt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               void* out_lo, int B, int Sq, int Skv, int Hq, int Hkv, int D,
@@ -513,7 +497,7 @@ extern "C" int simt_flash_fwd(const void* q, const void* k, const void* v, void*
   if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
   if ((lse == nullptr) != (out_lo == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD(T, DIM) fwd_launch<DIM>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st)
+#define FWD(DIM) fwd_launch<DIM>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st)
   SIMT_F32(FWD)
 #undef FWD
   return (int)cudaErrorInvalidValue;
@@ -526,10 +510,9 @@ extern "C" int simt_flash_bwd_dq(const void* q, const void* k, const void* v, co
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DQ(T, DIM) \
-  dq_launch<T, DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st)
+#define DQ(DIM) \
+  dq_launch<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st)
   SIMT_F32(DQ)
-  if (dtype == BF16 && D == 256) return DQ(bf16, 256);
 #undef DQ
   return (int)cudaErrorInvalidValue;
 }
@@ -541,10 +524,9 @@ extern "C" int simt_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   if (B == 0) return (int)cudaSuccess;
   if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DKV(T, DIM) \
-  dkv_launch<T, DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, scale, st)
+#define DKV(DIM) \
+  dkv_launch<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, scale, st)
   SIMT_F32(DKV)
-  if (dtype == BF16 && D == 256) return DKV(bf16, 256);
 #undef DKV
   return (int)cudaErrorInvalidValue;
 }
@@ -557,9 +539,9 @@ extern "C" int simt_paged_attention(const void* q, const void* k_pool, const voi
   if (n_kv <= 0 || nh % n_kv != 0 || page_size <= 0 || max_pages <= 0 || total_pages <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PAGED(T, DIM)                                                                      \
-  paged_launch<T, DIM>(q, k_pool, v_pool, table, lengths, out, B, nh, n_kv, total_pages, \
-                       page_size, max_pages, st)
+#define PAGED(DIM)                                                                      \
+  paged_launch<DIM>(q, k_pool, v_pool, table, lengths, out, B, nh, n_kv, total_pages, \
+                    page_size, max_pages, st)
   SIMT_F32(PAGED)
 #undef PAGED
   return (int)cudaErrorInvalidValue;

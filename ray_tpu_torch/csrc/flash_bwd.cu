@@ -87,15 +87,49 @@
 // dS^T . Q read dO and Q as MN-major B. The GQA sum over the group happens in
 // these registers: no atomics, a fixed order, bitwise-repeatable.
 //
+// D 256 has a kernel of its own for each (flash_bwd_dq_d256_kernel,
+// flash_bwd_dkv_d256_kernel): the plan above needs 384 KB of shared memory
+// for K2 (128 resident rows of Q and dO, two slots of 128-key K and V
+// tiles) and 256 accumulator registers a thread for K3 (dK and dV of 64
+// keys at D 256 over one warpgroup), against 227 KB and 255.
+// - K2 keeps the 128-row block, its warpgroups and its resident Q and dO
+//   (128 KB), and streams 64-key tiles through a ring of three 32 KB
+//   buffers in which K and V are loads of their own, each released on its
+//   own: the order is V_0, K_0, V_1, K_1, ..., V_j is released once dP =
+//   dO . V^T is done and K_j once dQ += dS . K is, and thread 0 refills
+//   V_j's buffer with K_(j+1) while dS . K runs and K_j's with V_(j+2) at
+//   the tile's end (224 KB in all). S and dP are 64 x 64 per warpgroup (32
+//   registers each) beside dQ's 128; ptxas (sm_90a) gives 246
+//   registers, no spill. S is committed before dP, and p = exp(s - lse) is
+//   computed while dP runs (wgmma_wait<1>): 1-2% faster at B8 S2048 than
+//   waiting for both (PERF.md, the D256 backward's section).
+// - K3 takes 64 keys a block, shared by both warpgroups: K and V resident
+//   (64 KB), a ring of two slots of 64-row Q and dO tiles (128 KB; 195 KB
+//   in all). Warpgroup w owns columns 128 w .. + 127 of dK and dV (128
+//   registers). Both warpgroups compute the q tile's S^T = K . Q^T and
+//   dP^T = V . dO^T over the whole head dim, form p^T and dS^T, and run
+//   dV += P^T . dO and dK += dS^T . Q on their own two slabs of dO and Q:
+//   six products where four are needed, and no traffic between the
+//   warpgroups. p^T is computed while dP^T runs, as in K2 (1-3% faster).
+//   225 registers, no spill. Tried first, in the same
+//   attention_times.py call on the H100 (B8 S2048, 8 q heads over 2,
+//   causal; PERF.md): warpgroup 0 computing S^T and p^T, warpgroup 1
+//   dP^T, the two fp32 tiles crossing through 32 KB of shared memory
+//   between two named barriers, four products (229 registers, no spill):
+//   1.026-1.030 ms against these 0.710-0.716. The barriers hold each
+//   warpgroup's exponentials and packing off the other's products, which
+//   the duplicate products do not cost. Not built: separate dV and dK
+//   kernels (five products, two launches).
+//
 // Not done: a persistent grid, overlap of one tile's exponentials with
 // another tile's products inside a warpgroup, and ping-pong scheduling.
 //
 // Layout: q/dO/dq [B, Sq, Hq, D], k/v/dk/dv [B, Skv, Hkv, D], all contiguous
 // bf16 and 16-byte aligned; lse and delta [B, Hq, Sq] fp32, contiguous and
-// 16-byte aligned. D 64 or 128 (a template instance each), any group
-// Hq / Hkv (a run-time value: K2's kv head, K3's walk over the group's q
-// heads; K3 also has llama_1b's D 128 at group 4 as an instance of its
-// own); anything else is refused.
+// 16-byte aligned. D 64 or 128 (a template instance each) or 256 (the
+// kernels above), any group Hq / Hkv (a run-time value: K2's kv head, K3's
+// walk over the group's q heads; K3 also has llama_1b's D 128 at group 4 as
+// an instance of its own); anything else is refused.
 
 #include "sm90.cuh"
 
@@ -555,9 +589,417 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------- K2 at D 256: dQ ---
+namespace k2w {
+constexpr int D = 256;
+constexpr int BQ = 128;                        // query rows per block, as at D 64 and 128
+constexpr int BK = 64;                         // keys per K or V tile
+constexpr int BUFS = 3;                        // ring buffers, each holding one K or one V tile
+constexpr uint32_t TILE = tile_bytes<D>(BK);   // 32 KB
+// Shared-memory plan: Q and dO resident (64 KB each), then the ring; 224 KB
+// of the 227 KB a block may have.
+struct Smem {
+  static constexpr uint32_t q_off = 0;
+  static constexpr uint32_t do_off = q_off + tile_bytes<D>(BQ);
+  static constexpr uint32_t ring_off = do_off + tile_bytes<D>(BQ);
+  static constexpr uint32_t bar_off = ring_off + BUFS * TILE;
+  // barriers: Q and dO, then full and empty for each buffer
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * BUFS) + 1024;  // + alignment slack
+};
+static_assert(Smem::bytes <= 232448, "K2 at D 256 exceeds a block's shared memory");
+}  // namespace k2w
+
+// Load n of K2's D 256 ring into buffer n % BUFS: V of key tile n / 2 when n
+// is even, K of it when n is odd (V first: it is released first).
+__device__ __forceinline__ void k2w_load(uint32_t base, int n, const CUtensorMap* tm_k,
+                                         const CUtensorMap* tm_v, int hk, int b) {
+  using namespace k2w;
+  const int buf = n % BUFS;
+  const uint32_t bar = base + Smem::bar_off + 8 + 8 * buf;
+  const uint32_t dst = base + Smem::ring_off + buf * TILE;
+  const CUtensorMap* map = (n & 1) ? tm_k : tm_v;
+  mbar_expect_tx(bar, TILE);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load(dst + c * BK * ROW, map, bar, 64 * c, hk, (n / 2) * BK, b);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                         const float* __restrict__ delta, int Sq, int Skv, int Hq, int group,
+                         int causal, float scale) {
+  using namespace k2w;
+  using SM = Smem;
+  constexpr int SLABS = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base + SM::q_off;
+  const uint32_t sDO = base + SM::do_off;
+  const uint32_t ring = base + SM::ring_off;
+  const uint32_t bar_q = base + SM::bar_off;
+  const uint32_t bar_full = bar_q + 8;             // + 8 buffer
+  const uint32_t bar_empty = bar_full + 8 * BUFS;  // + 8 buffer
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the widest causal q tiles first
+  const int hk = h / group;
+  const int offset = Skv - Sq;
+  const int kv_end = causal ? min(Skv, q0 + BQ + offset) : Skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int n_loads = 2 * n_tiles;  // V and K of each key tile
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < BUFS; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NTHREADS);  // every consumer thread releases the buffer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, 2 * tile_bytes<D>(BQ));
+#pragma unroll
+    for (int c = 0; c < SLABS; ++c) {
+      tma_load(sQ + c * BQ * ROW, &tm_q, bar_q, 64 * c, h, q0, b);
+      tma_load(sDO + c * BQ * ROW, &tm_do, bar_q, 64 * c, h, q0, b);
+    }
+    for (int n = 0; n < min(BUFS, n_loads); ++n) k2w_load(base, n, &tm_k, &tm_v, hk, b);
+  }
+  __syncthreads();
+
+  // ---- warpgroup w owns query rows q0 + 64 w .. + 63 --------------------
+  const int w = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int row0 = 16 * (t / 32) + lane / 4;
+  const int qw0 = q0 + 64 * w;
+  const int lim0 = qw0 + row0 + offset;
+  const int lim1 = lim0 + 8;
+  const float sl2 = scale * LOG2E;
+  const bool active = qw0 < Sq;
+  const int wg_tiles = causal ? (min(Skv, qw0 + 64 + offset) + BK - 1) / BK : n_tiles;
+
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw0 + row0 + 8 * r;
+    const long at = ((long)b * Hq + h) * Sq + row;
+    lse2[r] = row < Sq ? lse[at] * LOG2E : 0.f;
+    dlt[r] = row < Sq ? delta[at] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int nv = 2 * j, nk = 2 * j + 1;  // this key tile's V and K loads
+    const uint32_t sV = ring + (nv % BUFS) * TILE;
+    const uint32_t sK = ring + (nk % BUFS) * TILE;
+    const int k0 = j * BK;
+    const bool work = active && j < wg_tiles;
+    mbar_wait(bar_full + 8 * (nv % BUFS), (nv / BUFS) & 1);
+    mbar_wait(bar_full + 8 * (nk % BUFS), (nk / BUFS) & 1);
+    float sc[BK / 2], dp[BK / 2];
+    if (work) {
+      // S = Q . K^T, then dP = dO . V^T, each D / 16 products of depth 16 and
+      // a commit group of its own: p = exp(s - lse) is computed in place in
+      // sc while dP runs.
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32u;
+        wgmma_ss_n64(sc, smem_desc(sQ + (kk / 4) * BQ * ROW + 64 * w * ROW + step, 16, 1024),
+                     smem_desc(sK + (kk / 4) * BK * ROW + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32u;
+        wgmma_ss_n64(dp, smem_desc(sDO + (kk / 4) * BQ * ROW + 64 * w * ROW + step, 16, 1024),
+                     smem_desc(sV + (kk / 4) * BK * ROW + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      if (k0 + BK > Skv || (causal && k0 + BK - 1 > qw0 + offset)) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          if (key >= Skv || (causal && key > ((i & 2) ? lim1 : lim0))) sc[i] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = exp2_approx(fmaf(sc[i], sl2, -lse2[(i >> 1) & 1]));
+      wgmma_wait<0>();
+      fence_regs(dp);
+    }
+    // V is read by dP alone: release it, and thread 0 refills its buffer
+    // with the next key tile's K while dS . K runs.
+    mbar_arrive(bar_empty + 8 * (nv % BUFS));
+    if (threadIdx.x == 0 && nv + BUFS < n_loads) {
+      mbar_wait(bar_empty + 8 * (nv % BUFS), (nv / BUFS) & 1);
+      k2w_load(base, nv + BUFS, &tm_k, &tm_v, hk, b);
+    }
+    __syncwarp();
+    if (work) {
+      uint32_t a[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const int r = (i >> 1) & 1;
+        a[i / 8][(i % 8) / 2] =
+            pack_bf16(sc[i] * (dp[i] - dlt[r]) * scale, sc[i + 1] * (dp[i + 1] - dlt[r]) * scale);
+      }
+      // dQ += dS . K: K [keys, D] is the MN-major B operand, as two n128 halves
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+        wgmma_rs<D>(acc, a[kt], smem_desc(sK + kt * 16 * ROW, BK * ROW, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_empty + 8 * (nk % BUFS));
+    if (threadIdx.x == 0 && nk + BUFS < n_loads) {
+      mbar_wait(bar_empty + 8 * (nk % BUFS), (nk / BUFS) & 1);
+      k2w_load(base, nk + BUFS, &tm_k, &tm_v, hk, b);
+    }
+    __syncwarp();
+  }
+
+  if (!active) return;
+  const float one[2] = {1.f, 1.f};
+  stage_bf16<D>(smem + SM::q_off, BQ * ROW, 64 * w, acc, one);
+  warpgroup_sync_for_tma(w);
+  if (t == 0) {
+#pragma unroll
+    for (int c = 0; c < SLABS; ++c)
+      tma_store(&tm_dq, sQ + c * BQ * ROW + 64 * w * ROW, 64 * c, h, qw0, b);
+    tma_store_wait();
+  }
+}
+
+// --------------------------------------------------- K3 at D 256: dK/dV ---
+namespace k3w {
+constexpr int D = 256;
+constexpr int BK = 64;   // keys per block: both warpgroups own the same 64 keys
+constexpr int BQ = 64;   // query rows per ring slot
+constexpr int ROW_BOX = BQ + 4;
+// per slot: the lse box at 0 and the delta box at DELTA_AT (TMA destinations
+// on 128-byte boundaries)
+constexpr uint32_t DELTA_AT = 384;
+constexpr uint32_t row_bytes = 768;
+struct Smem {
+  static constexpr uint32_t k_off = 0;
+  static constexpr uint32_t v_off = k_off + tile_bytes<D>(BK);
+  static constexpr uint32_t q_off = v_off + tile_bytes<D>(BK);            // + s * tile_bytes(BQ)
+  static constexpr uint32_t do_off = q_off + STAGES * tile_bytes<D>(BQ);  // + s * tile_bytes(BQ)
+  static constexpr uint32_t row_off = do_off + STAGES * tile_bytes<D>(BQ);
+  static constexpr uint32_t bar_off = row_off + STAGES * row_bytes;
+  // barriers: K and V, then full and empty for each slot
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
+static_assert(Smem::bytes <= 232448, "K3 at D 256 exceeds a block's shared memory");
+}  // namespace k3w
+
+// Fill slot s of K3's D 256 ring: k3_load_slot's tiles and rows in k3w's plan.
+__device__ __forceinline__ void k3w_load_slot(uint32_t base, int s, const CUtensorMap* tm_q,
+                                              const CUtensorMap* tm_do,
+                                              const CUtensorMap* tm_lse,
+                                              const CUtensorMap* tm_delta, int h, int q0, int b,
+                                              int Hq, int Sq) {
+  using namespace k3w;
+  const uint32_t bar = base + Smem::bar_off + 8 + 8 * s;
+  const uint32_t sQ = base + Smem::q_off + s * tile_bytes<D>(BQ);
+  const uint32_t sDO = base + Smem::do_off + s * tile_bytes<D>(BQ);
+  const uint32_t sRows = base + Smem::row_off + s * row_bytes;
+  mbar_expect_tx(bar, 2 * tile_bytes<D>(BQ) + 2 * ROW_BOX * 4);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    tma_load(sQ + c * BQ * ROW, tm_q, bar, 64 * c, h, q0, b);
+    tma_load(sDO + c * BQ * ROW, tm_do, bar, 64 * c, h, q0, b);
+  }
+  const int start = k3_row(b, h, q0, Hq, Sq) & ~3;
+  tma_load_1d(sRows, tm_lse, bar, start);
+  tma_load_1d(sRows + DELTA_AT, tm_delta, bar, start);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_dk,
+                          const __grid_constant__ CUtensorMap tm_dv,
+                          const __grid_constant__ CUtensorMap tm_lse,
+                          const __grid_constant__ CUtensorMap tm_delta, int Sq, int Skv, int Hq,
+                          int group, int causal, float scale) {
+  using namespace k3w;
+  using SM = Smem;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sK = base + SM::k_off;
+  const uint32_t sV = base + SM::v_off;
+  const float* rows = reinterpret_cast<const float*>(smem + SM::row_off);  // + s * row_bytes / 4
+  const uint32_t bar_kv = base + SM::bar_off;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+
+  const int k0 = blockIdx.z * BK;  // the widest causal key tiles first
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int offset = Skv - Sq;
+  // the first q tile whose last row sees key k0; every later one sees it too
+  const int first = causal && k0 > offset ? (k0 - offset) / BQ : 0;
+  const int per_head = (Sq + BQ - 1) / BQ - first;
+  const int n_iters = group * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NTHREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_kv, 2 * tile_bytes<D>(BK));
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load(sK + c * BK * ROW, &tm_k, bar_kv, 64 * c, hk, k0, b);
+      tma_load(sV + c * BK * ROW, &tm_v, bar_kv, 64 * c, hk, k0, b);
+    }
+    for (int it = 0; it < min(STAGES, n_iters); ++it)
+      k3w_load_slot(base, it, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * group + it / per_head,
+                    (first + it % per_head) * BQ, b, Hq, Sq);
+  }
+  __syncthreads();
+
+  // ---- warpgroup w owns columns 128 w .. + 127 of dK and dV for all 64 keys
+  const int w = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int key0 = k0 + 16 * (t / 32) + lane / 4;  // this thread's keys: key0 and key0 + 8
+  const float sl2 = scale * LOG2E;
+
+  float dk[D / 4], dv[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_iters; ++it) {
+    const int h = hk * group + it / per_head;
+    const int q0 = (first + it % per_head) * BQ;
+    const int s = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    const uint32_t sQ = base + SM::q_off + s * tile_bytes<D>(BQ);
+    const uint32_t sDO = base + SM::do_off + s * tile_bytes<D>(BQ);
+    mbar_wait(bar_full + 8 * s, parity);
+
+    // S^T = K . Q^T and dP^T = V . dO^T, keys on the rows and queries on the
+    // columns, each over the whole head dim and in a commit group of its
+    // own: both warpgroups compute both (the two share the block's 64 keys),
+    // and p^T is computed in place in st while dP^T runs.
+    float st[BQ / 2], dpt[BQ / 2];
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32u;
+      wgmma_ss_n64(st, smem_desc(sK + (kk / 4) * BK * ROW + step, 16, 1024),
+                   smem_desc(sQ + (kk / 4) * BQ * ROW + step, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32u;
+      wgmma_ss_n64(dpt, smem_desc(sV + (kk / 4) * BK * ROW + step, 16, 1024),
+                   smem_desc(sDO + (kk / 4) * BQ * ROW + step, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // p^T, 0 where column (query) q does not see key k (q >= Sq, or k > q +
+    // offset); then p^T and ds^T, each packed pairwise into bf16 A fragments.
+    const float* lse_s = rows + s * (row_bytes / 4) + (k3_row(b, h, q0, Hq, Sq) & 3);
+    const float* delta_s = lse_s + DELTA_AT / 4;
+    const bool edge = q0 + BQ > Sq || (causal && k0 + BK - 1 > q0 + offset);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+      const int key = (i & 2) ? key0 + 8 : key0;
+      const int q = q0 + col;
+      const bool seen = !edge || (q < Sq && !(causal && key > q + offset));
+      st[i] = seen ? exp2_approx(fmaf(st[i], sl2, -lse_s[col] * LOG2E)) : 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; i += 2) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      pa[i / 8][(i % 8) / 2] = pack_bf16(st[i], st[i + 1]);
+      da[i / 8][(i % 8) / 2] = pack_bf16(st[i] * (dpt[i] - delta_s[col]) * scale,
+                                         st[i + 1] * (dpt[i + 1] - delta_s[col + 1]) * scale);
+    }
+
+    // dV[:, 128 w ..] += P^T . dO[:, 128 w ..] and dK[:, 128 w ..] += dS^T .
+    // Q[:, 128 w ..]: this warpgroup's two slabs of dO and Q, MN-major B
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BQ / 16; ++kt)
+      wgmma_rs<128>(dv, pa[kt], smem_desc(sDO + 2 * w * BQ * ROW + kt * 16 * ROW, BQ * ROW, 1024));
+#pragma unroll
+    for (int kt = 0; kt < BQ / 16; ++kt)
+      wgmma_rs<128>(dk, da[kt], smem_desc(sQ + 2 * w * BQ * ROW + kt * 16 * ROW, BQ * ROW, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(bar_empty + 8 * s);
+    const int next = it + STAGES;
+    if (threadIdx.x == 0 && next < n_iters) {
+      mbar_wait(bar_empty + 8 * s, parity);
+      k3w_load_slot(base, s, &tm_q, &tm_do, &tm_lse, &tm_delta, hk * group + next / per_head,
+                    (first + next % per_head) * BQ, b, Hq, Sq);
+    }
+    __syncwarp();
+  }
+
+  // ---- epilogue: this warpgroup's slabs of dK and dV through those of K and
+  // V, once neither warpgroup reads K or V any more (the score products).
+  __syncthreads();
+  const float one[2] = {1.f, 1.f};
+  stage_bf16<128>(smem + SM::k_off + 2 * w * BK * ROW, BK * ROW, 0, dk, one);
+  stage_bf16<128>(smem + SM::v_off + 2 * w * BK * ROW, BK * ROW, 0, dv, one);
+  warpgroup_sync_for_tma(w);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = 2 * w + i;
+      tma_store(&tm_dk, sK + c * BK * ROW, 64 * c, hk, k0, b);
+      tma_store(&tm_dv, sV + c * BK * ROW, 64 * c, hk, k0, b);
+    }
+    tma_store_wait();
+  }
+}
+
 int check_shape(int B, int Sq, int Skv, int Hq, int Hkv, int Dim) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq <= 0) return (int)cudaErrorInvalidValue;
-  if ((Dim != 64 && Dim != 128) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if ((Dim != 64 && Dim != 128 && Dim != 256) || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
 }
 
@@ -613,6 +1055,56 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+int launch_dq_d256(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int B, int Sq, int Skv, int Hq,
+                   int Hkv, int causal, float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  if (!make_map(encode, &tm_q, q, B, Sq, Hq, 256, k2w::BQ) ||
+      !make_map(encode, &tm_k, k, B, Skv, Hkv, 256, k2w::BK) ||
+      !make_map(encode, &tm_v, v, B, Skv, Hkv, 256, k2w::BK) ||
+      !make_map(encode, &tm_do, dout, B, Sq, Hq, 256, k2w::BQ) ||
+      !make_map(encode, &tm_dq, dq, B, Sq, Hq, 256, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_d256_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)k2w::Smem::bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(Hq, B, (Sq + k2w::BQ - 1) / k2w::BQ);
+  flash_bwd_dq_d256_kernel<<<grid, NTHREADS, k2w::Smem::bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), Sq, Skv, Hq, Hq / Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_d256(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                    int Skv, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, tm_lse, tm_delta;
+  const long rows = (long)B * Hq * Sq;
+  if (!make_map_1d_f32(encode, &tm_lse, lse, rows, k3w::ROW_BOX) ||
+      !make_map_1d_f32(encode, &tm_delta, delta, rows, k3w::ROW_BOX) ||
+      !make_map(encode, &tm_q, q, B, Sq, Hq, 256, k3w::BQ) ||
+      !make_map(encode, &tm_k, k, B, Skv, Hkv, 256, k3w::BK) ||
+      !make_map(encode, &tm_v, v, B, Skv, Hkv, 256, k3w::BK) ||
+      !make_map(encode, &tm_do, dout, B, Sq, Hq, 256, k3w::BQ) ||
+      !make_map(encode, &tm_dk, dk, B, Skv, Hkv, 256, k3w::BK) ||
+      !make_map(encode, &tm_dv, dv, B, Skv, Hkv, 256, k3w::BK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_d256_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)k3w::Smem::bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(Hkv, B, (Skv + k3w::BK - 1) / k3w::BK);
+  flash_bwd_dkv_d256_kernel<<<grid, NTHREADS, k3w::Smem::bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, tm_lse, tm_delta, Sq, Skv, Hq, Hq / Hkv, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -622,6 +1114,8 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
   int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dim == 256)
+    return launch_dq_d256(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st);
   if (Dim == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st);
   return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st);
@@ -634,6 +1128,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
   int err = check_shape(B, Sq, Skv, Hq, Hkv, Dim);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dim == 256)
+    return launch_dkv_d256(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
+                           scale, st);
   if (Dim == 128 && Hq == 4 * Hkv)
     return launch_dkv<128, 4>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
                               scale, st);

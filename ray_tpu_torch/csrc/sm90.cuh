@@ -116,6 +116,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N of this warpgroup's committed wgmma groups are still
+// running: with N = 1, the older of two groups has finished.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keep the compiler from moving reads or writes of an accumulator across the
 // asynchronous wgmma that owns it.

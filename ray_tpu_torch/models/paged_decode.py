@@ -13,11 +13,11 @@ softmaxes a second kernel merges (bf16, head dim 128 or 256, any GQA group);
 fp32 goes to the CUDA-core decode kernel of ``csrc/attention_simt.cu``
 (counted as ``paged_attention_simt``). On a CPU tensor the wrapper runs
 ``_paged_attention_reference``, the gather-based plain version. On the card,
-``_paged_attention`` sends a layer of a head dim the kernel does not tile
-(``kernel_tiles``: the JAX package's rule, ``head_dim % 128 != 0``) to the
-plain version and counts it as ``paged_attention_plain``, as the JAX package
-takes its gather path there. A head dim it tiles in a dtype the kernels do
-not take (fp16), or above 256, raises in the wrapper.
+``_paged_attention`` sends a layer of a head dim the kernels do not take in
+its dtype (``kernel_tiles``: 128 and 256 in bf16, 64, 128 and 256 in fp32)
+to the plain version and counts it as ``paged_attention_plain``, as the JAX
+package takes its gather path for the head dims its kernel does not tile.
+A dtype the kernels do not take (fp16) raises in the wrapper.
 
 The pool is updated in place where the JAX version donates it through
 ``jit``. PAGE 0 IS THE TRASH PAGE: inactive slots and padded prefill rows
@@ -46,8 +46,8 @@ SIMT = "paged_attention_simt"
 PLAIN = "paged_attention_plain"
 # What the kernels take, at any GQA group: the tensor-core kernel bf16 at
 # these head dims, the CUDA-core kernel fp32 at these and 64. The dispatch
-# rule sends only head dims off multiples of TILE to the plain version.
-HEAD_DIMS, SIMT_HEAD_DIMS, TILE = (128, 256), (64, 128, 256), 128
+# rule (kernel_tiles) sends every other head dim to the plain version.
+HEAD_DIMS, SIMT_HEAD_DIMS = (128, 256), (64, 128, 256)
 
 
 class PagedKVCache(NamedTuple):
@@ -213,19 +213,21 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     return out
 
 
-def kernel_tiles(head_dim: int) -> bool:
-    """The dispatch rule of ``_paged_attention`` on the card: whether the
-    decode kernel tiles this head dim, by the JAX package's rule. Group,
-    dtype and page size are no part of the rule: the wrapper raises on those
-    it does not take."""
-    return head_dim % TILE == 0
+def kernel_tiles(head_dim: int, dtype=torch.bfloat16) -> bool:
+    """The dispatch rule of ``_paged_attention`` on the card: whether a
+    decode kernel takes this head dim in this dtype (fp32: the CUDA-core
+    kernel's SIMT_HEAD_DIMS; any other dtype: the tensor-core kernel's
+    HEAD_DIMS), as C1's rule answers for the flash kernels. Group and page
+    size are no part of the rule, nor is a dtype no kernel takes (fp16 is
+    held to HEAD_DIMS): the wrapper raises on those."""
+    return head_dim in (SIMT_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS)
 
 
 def _paged_attention(q, k_pool, v_pool, table, lengths, scale, config):
     """q: [B, 1, nh, D] -> [B, 1, nh, D]. q is scaled here: the kernel does
     not scale it."""
     qs = (q[:, 0] * scale).to(q.dtype)
-    if q.device.type == "cuda" and not kernel_tiles(q.shape[-1]):
+    if q.device.type == "cuda" and not kernel_tiles(q.shape[-1], k_pool.dtype):
         _kernels.launch_counts[PLAIN] += 1
         return _paged_attention_reference(qs, k_pool, v_pool, table, lengths, 1.0)[:, None]
     return paged_attention(qs, k_pool, v_pool, table, lengths)[:, None]

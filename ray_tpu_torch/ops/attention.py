@@ -15,13 +15,12 @@ Port of ray_tpu/ops/attention.py.
   rounding residual ``o - bf16(o)`` of the output. The two count apart, as
   ``flash_fwd`` and ``flash_fwd_lse``.
 - ``flash_bwd`` wraps the two backward kernels (``csrc/flash_bwd.cu``): dQ
-  (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 64 or 128,
-  any number of q heads per kv head.
-- The same wrappers send fp32 at head dim 64, 128 or 256, and the bf16
-  backward at head dim 256, to the CUDA-core kernels of
-  ``csrc/attention_simt.cu`` (full fp32 products, no TF32), which count
-  under their own names with ``_simt`` appended (``flash_fwd_simt``,
-  ``flash_fwd_lse_simt`` in fp32; ``flash_bwd_dq_simt``,
+  (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 64, 128
+  or 256, any number of q heads per kv head.
+- The same wrappers send fp32 at head dim 64, 128 or 256 to the CUDA-core
+  kernels of ``csrc/attention_simt.cu`` (full fp32 products, no TF32),
+  which count under their own names with ``_simt`` appended
+  (``flash_fwd_simt``, ``flash_fwd_lse_simt``, ``flash_bwd_dq_simt``,
   ``flash_bwd_dkv_simt``). ``simt_route`` decides, by kernel, dtype and
   head dim. In fp32 ``out_lo`` is zeros. ``delta = rowsum(dO * O)`` is computed
   here in fp32, outside the kernels, as the JAX package computes it, but
@@ -81,8 +80,8 @@ FWD_LIB, BWD_LIB, SIMT_LIB = "flash_fwd", "flash_bwd", "attention_simt"
 # theirs and the CUDA-core kernels at the rest; in fp32 the CUDA-core kernels
 # at all three.
 KERNEL_DIMS = (64, 128, 256)
-WGMMA_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128),
-              "flash_bwd_dkv": (64, 128)}
+WGMMA_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
+              "flash_bwd_dkv": (64, 128, 256)}
 SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN = "attention_plain"
 
@@ -194,9 +193,9 @@ def simt_route(kernel: str, dtype, head_dim: int) -> bool:
     """Whether a CUDA call of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") in this dtype and head dim goes to the CUDA-core
     kernels (``csrc/attention_simt.cu``): fp32 at any head dim the kernels
-    tile, and the bf16 backward at 256. bf16 goes to the tensor-core kernels
-    at the head dims of ``WGMMA_DIMS[kernel]`` (the forward at 64, 128 and
-    256, the backward at 64 and 128); anything else raises."""
+    tile. bf16 goes to the tensor-core kernels at the head dims of
+    ``WGMMA_DIMS[kernel]`` (64, 128 and 256 for every kernel); anything
+    else raises."""
     if head_dim not in KERNEL_DIMS:
         raise ValueError(f"{kernel} kernel takes head_dim "
                          f"{' or '.join(map(str, KERNEL_DIMS))}, got {head_dim}")

@@ -96,7 +96,7 @@ class LLMEngine:
                 make_paged_prefill_fn,
             )
 
-            if dev.type == "cuda" and kernel_tiles(config.head_dim_):
+            if dev.type == "cuda" and kernel_tiles(config.head_dim_, config.dtype):
                 # the decode kernel's limits, at construction, not at the first tick
                 check_layer(config.head_dim_, config.num_heads, config.num_kv_heads,
                             config.dtype)

@@ -325,6 +325,18 @@ BWD_CASES = [
     (1, 255, 255, 8, 4, 64, True),       # group 2, one row short of two tiles
     (1, 1, 65, 4, 1, 64, True),          # group 4, one query row
     (1, 1, 196, 2, 2, 64, False),        # group 1, one query row, not causal
+    # D256 (the 128-row q tile and 64-key K/V tiles of dQ, the 64-key block of
+    # dK/dV) at groups 1, 4 and 8
+    (2, 128, 128, 8, 2, 256, True),      # group 4: the c5 D256 config's prefill heads
+    (1, 1024, 1024, 8, 2, 256, True),    # group 4, 16 key tiles through the 3-buffer ring
+    (1, 100, 300, 8, 2, 256, True),      # ragged, Sq < Skv (bottom-right causal)
+    (1, 129, 129, 4, 1, 256, True),      # one row past a q tile
+    (2, 196, 196, 4, 4, 256, False),     # group 1, not causal, ragged
+    (1, 65, 200, 8, 1, 256, True),       # group 8, Sq < Skv
+    (1, 1, 65, 8, 1, 256, True),         # group 8, one query row
+    (1, 1, 2048, 4, 1, 256, True),       # one query row against many key tiles
+    (1, 100, 70, 8, 2, 256, False),      # not causal, Sq > Skv
+    (1, 63, 63, 2, 2, 256, True),        # fewer keys than one tile
 ]
 
 
@@ -345,7 +357,7 @@ def test_flash_bwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
         _close_grad(got, ref)
 
 
-@pytest.mark.parametrize("hkv,d,causal", [(4, 128, True), (16, 64, False)])
+@pytest.mark.parametrize("hkv,d,causal", [(4, 128, True), (16, 64, False), (2, 256, True)])
 def test_flash_bwd_is_deterministic(dev, hkv, d, causal):
     """Two launches on the same inputs give bitwise-equal dq, dk and dv: the
     kernels sum in a fixed order (the GQA group in registers), with no
@@ -437,10 +449,10 @@ def _rel(a, b):
     ((1, 64, 16, 4, 128), False, {"flash_fwd": 1}),               # llama_1b
     ((1, 64, 16, 4, 128), True, {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
     ((1, 64, 8, 2, 256), False, {"flash_fwd": 1}),                # D256: the tensor-core forward
-    ((1, 64, 8, 2, 256), True, {"flash_fwd_lse": 1, "flash_bwd_dq_simt": 1,
-                                "flash_bwd_dkv_simt": 1}),        # ... and the CUDA-core backward
-    ((2, 100, 8, 1, 256), True, {"flash_fwd_lse": 1, "flash_bwd_dq_simt": 1,
-                                 "flash_bwd_dkv_simt": 1}),       # group 8, ragged
+    ((1, 64, 8, 2, 256), True, {"flash_fwd_lse": 1, "flash_bwd_dq": 1,
+                                "flash_bwd_dkv": 1}),             # ... and the tensor-core backward
+    ((2, 100, 8, 1, 256), True, {"flash_fwd_lse": 1, "flash_bwd_dq": 1,
+                                 "flash_bwd_dkv": 1}),            # group 8, ragged
 ])
 def test_attention_dispatch_counts(dev, shape, grad, want):
     b, s, hq, hkv, d = shape
@@ -490,23 +502,52 @@ def test_attention_auto_raises_where_the_kernels_tile_but_do_not_take(dev, hq, h
 
 
 def test_paged_dispatch_raises_where_the_kernel_tiles_but_does_not_take(dev):
-    """D384 (a multiple of 128 above 256) or fp16: the decode layer and the
-    engine raise; the engine does so when it is built."""
+    """fp16 at D128: the decode layer and the engine raise; the engine does
+    so when it is built. D384 (a multiple of 128 above 256, which no kernel
+    takes: fault C10) runs the plain decode instead."""
     from ray_tpu_torch.serve.llm import LLMEngine
 
     before = _counts()
     q, kp, vp, table, lengths = _paged_case(dev, [5, 70], 4, 2, 384, 16, 10)
-    with pytest.raises(ValueError, match="D 128 or 256"):
-        pd._paged_attention(q[:, None], kp, vp, table, lengths, 1.0, None)
+    out = pd._paged_attention(q[:, None], kp, vp, table, lengths, 1.0, None)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"paged_attention_plain": 1}
+    _close(out[:, 0], pd._paged_attention_reference(q, kp, vp, table, lengths, 1.0))
+    before = _counts()
     q, kp, vp, table, lengths = _paged_case(dev, [5, 70], 16, 4, 128, 16, 10)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         pd._paged_attention(q[:, None].half(), kp.half(), vp.half(), table, lengths, 1.0,
                             None)
     assert not _delta(before)
-    with pytest.raises(ValueError, match="D 128 or 256"):
-        LLMEngine(_kernel_shaped(num_heads=2, num_kv_heads=1, head_dim=384), device=dev)
+    LLMEngine(_kernel_shaped(num_heads=2, num_kv_heads=1, head_dim=384), device=dev).stop()
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         LLMEngine(_kernel_shaped(dtype=torch.float16), device=dev)
+
+
+@pytest.mark.parametrize("head_dim", [384, 512])
+def test_paged_engine_above_d256_answers_through_the_plain_decode(dev, head_dim):
+    """Fault C10: a bf16 paged engine at a head dim no decode kernel takes
+    (a multiple of 128 above 256, as the JAX package's rule sends to its
+    kernel) is built and answers, its decode through the plain version
+    (counted as paged_attention_plain) and its prefill through the plain
+    attention (attention_plain), and launches no kernel."""
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = _kernel_shaped(num_heads=4, num_kv_heads=1, head_dim=head_dim)
+    params = llama_init(cfg, 3, dev)
+    before = _counts()
+    eng = LLMEngine(cfg, params, device=dev, num_slots=2, max_seq_len=128, page_size=16,
+                    prefill_buckets=[64])
+    try:
+        got = [eng.generate(p, max_tokens=6, timeout=120)["tokens"]
+               for p in ([3, 1, 4, 1, 5], list(range(7, 40)))]
+    finally:
+        eng.stop()
+    counts = _delta(before)
+    assert counts.get("paged_attention_plain", 0) > 0, counts
+    assert set(counts) <= set(PLAINS), counts
+    assert all(len(t) == 6 and all(0 <= x < cfg.vocab_size for x in t) for t in got)
 
 
 def test_tiny_engine_on_the_card_matches_the_cpu(dev):
@@ -911,8 +952,8 @@ def test_sharded_eval_step_launches_the_forward_kernel(mesh1):
 
 
 # --------------------------------------------------------------------------- #
-# Fault C5: any GQA group and head dim 256 on the decode kernel, and the
-# CUDA-core kernels (fp32 at D64/128/256, bf16 at D256) of attention_simt.cu.
+# Fault C5: any GQA group and head dim 256 on the decode kernel, the CUDA-core
+# kernels (fp32 at D64/128/256) of attention_simt.cu, and bf16 at D256.
 # fp32 kernels against the plain versions (fp32 math, full fp32 products) at
 # the JAX tests' fp32 tolerance: |kernel - plain| <= 2e-5 + 2e-5 |plain|.
 # --------------------------------------------------------------------------- #
@@ -985,12 +1026,11 @@ def test_simt_kernels_fp32_match_plain(dev, shape):
 
 @pytest.mark.parametrize("shape", [(2, 100, 300, 8, 2, 256, True), (1, 196, 196, 4, 4, 256, False),
                                    (1, 65, 200, 8, 1, 256, True)])
-def test_simt_kernels_bf16_d256_match_plain(dev, shape):
+def test_flash_bwd_d256_kernels_match_plain(dev, shape):
     """bf16 at D256: the tensor-core forward (flash_fwd.cu) writes lse and
-    out_lo, and the CUDA-core backward kernels, which the wgmma backward
-    does not tile at D256, fed by them give the plain backward's gradients
-    at the bf16 tolerances of the tensor-core kernels' tests; bitwise
-    repeatable."""
+    out_lo, and the tensor-core backward kernels' D256 instances
+    (flash_bwd.cu), fed by them, give the plain backward's gradients at the
+    bf16 tolerances of the kernels' tests; bitwise repeatable."""
     causal = shape[-1]
     q, k, v, dout = _f32_case(shape, sum(shape[:6]), dev, torch.bfloat16)
     before = _counts()
@@ -998,8 +1038,7 @@ def test_simt_kernels_bf16_d256_match_plain(dev, shape):
     grads = ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo)
     again = ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo)
     torch.cuda.synchronize()
-    assert _delta(before) == {"flash_fwd_lse": 1, "flash_bwd_dq_simt": 2,
-                              "flash_bwd_dkv_simt": 2}
+    assert _delta(before) == {"flash_fwd_lse": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
     ref_out, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
     _close(out, ref_out)
     assert (lse - ref_lse).abs().max().item() <= 1e-3 + 1e-4 * ref_lse.abs().max().item()

@@ -124,7 +124,7 @@ def test_attention_matches_jax_reference_and_interpret_kernel(b, sq, skv, hq, hk
     (32, False, False),   # tiny: D32
     (32, True, False),
     (256, False, True),   # D256: the tensor-core forward in bf16 (CUDA cores in fp32)
-    (256, True, True),    # ... and the CUDA-core backward
+    (256, True, True),    # ... and the tensor-core backward
     (384, False, False),
 ])
 def test_flash_dispatch_rule(d, grad, tiles):
@@ -135,8 +135,8 @@ def test_flash_dispatch_rule(d, grad, tiles):
 
 @pytest.mark.parametrize("kernel,dtype,d,simt", [
     ("flash_fwd", torch.bfloat16, 256, False),     # the tensor-core forward at D256
-    ("flash_bwd_dq", torch.bfloat16, 256, True),   # the D256 backward on the CUDA cores
-    ("flash_bwd_dkv", torch.bfloat16, 256, True),
+    ("flash_bwd_dq", torch.bfloat16, 256, False),  # the D256 backward on the tensor cores
+    ("flash_bwd_dkv", torch.bfloat16, 256, False),
     ("flash_fwd", torch.bfloat16, 64, False),
     ("flash_fwd", torch.bfloat16, 128, False),
     ("flash_bwd_dq", torch.bfloat16, 64, False),
@@ -322,6 +322,8 @@ FLASH_GRAD_CASES = [
     (1, 64, 64, 4, 4, 32, False),    # MHA non-causal
     (1, 32, 96, 4, 1, 32, True),     # Sq < Skv, bottom-right causal, 4 q heads per kv head
     (1, 64, 128, 8, 2, 32, False),   # Sq < Skv non-causal
+    (1, 64, 64, 8, 2, 256, True),    # D256, group 4, causal: the c5 D256 config's heads
+    (1, 64, 128, 4, 1, 256, False),  # D256, group 4, Sq < Skv non-causal
 ]
 
 

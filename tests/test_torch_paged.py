@@ -140,6 +140,22 @@ def test_paged_dispatch_rule(d, tiles):
     assert tpd.kernel_tiles(d) is tiles
 
 
+@pytest.mark.parametrize("d,dtype,tiles", [
+    (128, torch.bfloat16, True), (256, torch.bfloat16, True),     # the tensor-core kernel
+    (64, torch.float32, True), (128, torch.float32, True),        # the CUDA-core kernel
+    (256, torch.float32, True),
+    (64, torch.bfloat16, False),                                  # no bf16 kernel at D64
+    (384, torch.bfloat16, False), (512, torch.bfloat16, False),   # fault C10: above 256
+    (384, torch.float32, False), (512, torch.float32, False),
+    (128, torch.float16, True),                                   # fp16: the wrapper raises
+])
+def test_paged_route_by_head_dim_and_dtype(d, dtype, tiles):
+    """Fault C10: the rule answers by the head dims the kernels take in the
+    dtype, so a multiple of 128 above 256 runs the plain decode instead of
+    reaching a wrapper that raises; fp16 still reaches the wrapper."""
+    assert tpd.kernel_tiles(d, dtype) is tiles
+
+
 @pytest.mark.parametrize("d,nh,nkv,dtype,match", [
     (128, 16, 4, torch.bfloat16, None),            # llama_1b
     (128, 32, 8, torch.bfloat16, None),            # llama3_8b
