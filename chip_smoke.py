@@ -113,12 +113,16 @@ Phases, all of them on every run, in this order:
            lse and out_lo, against their plain versions at the same 5
            shapes, twice bitwise equal, then timed at the same two shapes
            beside SDPA's backward and the bound, with their ptxas registers
-           and spills (a spill fails the phase); (c) every CUDA-core kernel
-           of csrc/attention_simt.cu in fp32 at D64/128/256 (atol = rtol =
-           2e-5) against its plain version, then timed at the c5 paths'
-           shapes beside SDPA and its bound (fp32 operations at the CUDA
-           cores' fp32 peak); (d) LLMEngine at llama_1b's width with 2
-           layers for MHA, group 8 and D256 in bf16 and group 4 in fp32, 8
+           and spills (a spill fails the phase); (c) every fp32 kernel at
+           D64/128/256 (atol = rtol = 2e-5) against its plain version: the
+           CUDA-core forward and decode of csrc/attention_simt.cu and the
+           3xTF32 tensor-core dQ and dK/dV of csrc/flash_bwd_f32.cu (these
+           twice, bitwise equal), then timed at the c5 paths' shapes beside
+           SDPA (its kernels' names printed) and the bound (fp32 operations
+           at the CUDA cores' 67 TFLOP/s; for the 3xTF32 pair at a third of
+           the TF32 peak, with the CUDA cores' beside it), the pair also at
+           B8 S2048 and at D64 and D256; (d) LLMEngine at llama_1b's width
+           with 2 layers for MHA, group 8 and D256 in bf16 and group 4 in fp32, 8
            requests each, exact launches of each route's kernels, fp32
            tokens equal to the plain path's (bf16: how many requests'
            tokens are, printed); (e) fp32 training (B2 S512)
@@ -227,13 +231,16 @@ launches_cluster, from the cluster phase's replica process, and
 launches_cluster_apps, from the cluster_apps phase's replica behind the RPC
 ingress; all five carry launches_ops_shell, from the ops_shell phase's
 actor on the autoscaled node: its 4 prompts for the first two, its 3 train
-steps for the other three; the CUDA-core kernels' launches come from the c5
-phase's fp32 engine and its fp32 train steps; flash_fwd_lse, flash_bwd_dq
+steps for the other three; the fp32 kernels' launches (the CUDA-core
+forward and decode, the 3xTF32 dQ and dK/dV) come from the c5 phase's fp32
+engine and its fp32 train steps; flash_fwd_lse, flash_bwd_dq
 and flash_bwd_dkv also carry launches_c5_d256, from the c5 phase's bf16
 D256 train steps). The entries of flash_fwd, flash_fwd_lse, flash_bwd_dq
 and flash_bwd_dkv also carry their D256 instances' numbers, keys suffixed
 _d256 (the c5 prefill shape) and _d256_s2048 (B8 S2048), and their ptxas
-registers and spills;
+registers and spills; flash_bwd_dq_tf32x3's and flash_bwd_dkv_tf32x3's
+their numbers at F32_BWD_TIMED's shapes (keys suffixed _s2048, _d64,
+_d256) and bound_ms_cuda_cores, the bound at the CUDA cores' rate;
 paged_attention's the c5 phase's widened shapes, keys suffixed
 _g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
 """
@@ -387,7 +394,7 @@ def phase_device(ctx):
     ctx["build_s"] = secs
     print(f"kernel build: {secs:.1f} s", flush=True)
     ctx["ptxas"] = {}
-    for name in ("flash_fwd", "flash_bwd", "paged_attention", "attention_simt"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention", "attention_simt", "flash_bwd_f32"):
         log = _kernels.build_log(name)
         for line in log.splitlines():
             if ("registers" in line or "spill" in line or "entry function" in line
@@ -410,10 +417,13 @@ def ptxas_summary(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            kern = re.search(r"([a-z_]+_kernel)I(\w*?E)Ev", mangled)
+            # a template kernel: its length-prefixed name, I, the arguments
+            kern = next((m for m in re.finditer(r"(?=(\d+)([a-z]\w*?_kernel)I(\w*?E)Ev)",
+                                                mangled)
+                         if len(m.group(2)) == int(m.group(1))), None)
             if kern:  # template arguments: Li<n>E an int, f float, 13__nv_bfloat16
-                args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", kern.group(2))
-                inst = (f"{kern.group(1)}<"
+                args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", kern.group(3))
+                inst = (f"{kern.group(2)}<"
                         + ", ".join("bf16" if a[1] else "f32" if a[2] else a[0] for a in args)
                         + ">")
             else:  # no template: the last of its length-prefixed names
@@ -2282,6 +2292,7 @@ def phase_rl_platform(ctx):
 # width at 2 layers served and trained in those shapes and dtypes
 # --------------------------------------------------------------------------- #
 SIMT_SRC = "ray_tpu_torch/csrc/attention_simt.cu"
+F32_BWD_SRC = "ray_tpu_torch/csrc/flash_bwd_f32.cu"
 # fp32 kernels against their plain versions (fp32 math, full fp32 products):
 # the JAX tests' fp32 flash tolerance (tests/test_ops_attention.py),
 # elementwise |kernel - plain| <= F32_TOL + F32_TOL |plain|
@@ -2289,6 +2300,10 @@ F32_TOL = 2e-5
 # fp32 FLOP/s on the CUDA cores (NVIDIA's data sheets, dense): the SIMT
 # kernels' bound is their operations at this rate
 FP32_FLOPS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H200 SXM": 67e12}
+# dense TF32 FLOP/s on the tensor cores (the same sheets): the 3xTF32
+# kernels do three TF32 products for each fp32-accurate one, so their bound
+# is their operations at a third of this rate (the CUDA cores' 67 beside it)
+TF32_FLOPS = {"H100 SXM": 494.7e12, "H100 PCIe": 378e12, "H200 SXM": 494.7e12}
 # K4's widened shapes (nh, n_kv, D): groups 1, 2, 8, 16 and 32 at D128, group
 # 4 at D256
 C5_K4 = ((16, 16, 128), (16, 8, 128), (16, 2, 128), (16, 1, 128), (32, 1, 128), (16, 4, 256))
@@ -2303,6 +2318,12 @@ C5_TRAIN_ATTN = (2, 512, 512, 16, 4, 128, True)
 # training shape, B8 S2048 causal: the same 137 GFLOP of causal products as
 # llama_1b's K1' shape, where the D256 forward is also timed
 D256_TRAIN_ATTN = (8, 2048, 2048, 8, 2, 256, True)
+# where the fp32 backward (flash_bwd_f32.cu) is timed besides C5_TRAIN_ATTN:
+# llama_1b's training shape in fp32, and B2 S512 at D64 (16 q heads over 4)
+# and at D256 (the c5 D256 config's 8 over 2); keys suffixed so on the
+# kernels line
+F32_BWD_TIMED = {"_s2048": TRAIN_ATTN, "_d64": (2, 512, 512, 16, 4, 64, True),
+                 "_d256": (2, 512, 512, 8, 2, 256, True)}
 # the D256 tensor-core forward and backward against their plain versions:
 # the two timed shapes, then groups 4, 1 and 8 with ragged, non-causal and
 # Sq < Skv rows
@@ -2586,16 +2607,17 @@ def _c5_d256_backward(ctx):
 
 
 def _c5_simt_kernels(ctx):
-    """Every SIMT kernel against its plain version in fp32 at D64/128/256
-    (F32_TOL); then each timed at the c5 paths' shapes, beside its plain
-    version, SDPA where one call computes the same function, and its
-    bound."""
+    """Every fp32 kernel against its plain version at D64/128/256 (F32_TOL):
+    the SIMT forward and decode, and the 3xTF32 dQ and dK/dV
+    (flash_bwd_f32.cu), each of these launched twice, bitwise equal; then
+    each timed at the c5 paths' shapes, beside its plain version, SDPA where
+    one call computes the same function, and its bound."""
     import torch
 
     from ray_tpu_torch.models import paged_decode as pd
     from ray_tpu_torch.ops import attention as ta
 
-    errs = {k: [] for k in ("k1s", "k1ls", "k2s", "k3s", "k4s")}
+    errs = {k: [] for k in ("k1s", "k1ls", "k2t", "k3t", "k4s")}
     cases = [(b, sq, skv, hq, hkv, d, causal) for d in (64, 128, 256)
              for b, sq, skv, hq, hkv, causal in ((2, 100, 300, 8, 2, True),
                                                  (2, 77, 50, 4, 1, False),
@@ -2608,27 +2630,34 @@ def _c5_simt_kernels(ctx):
         delta = ta._delta(out_l, dout, out_lo)
         dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
         dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+        again = (ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale),
+                 *ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale))
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+                f"c5 fp32 backward {shape}: two launches differ")
         ref, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
         ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
         ref_dk, ref_dv = ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
         checks = [("k1s", "flash_fwd_simt out", out, ref),
                   ("k1ls", "flash_fwd_lse_simt out", out_l, ref),
-                  ("k2s", "flash_bwd_dq_simt dq", dq, ref_dq),
-                  ("k3s", "flash_bwd_dkv_simt dk", dk, ref_dk),
-                  ("k3s", "flash_bwd_dkv_simt dv", dv, ref_dv)]
+                  ("k2t", "flash_bwd_dq_tf32x3 dq", dq, ref_dq),
+                  ("k3t", "flash_bwd_dkv_tf32x3 dk", dk, ref_dk),
+                  ("k3t", "flash_bwd_dkv_tf32x3 dv", dv, ref_dv)]
+        ratios = {}
         for key, what, got, want in checks:
-            ratio = _f32_ratio(got, want)
+            ratios[what] = ratio = _f32_ratio(got, want)
             errs[key].append((got.float() - want.float()).abs().max().item())
             require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
                     f"c5 {what} fp32 {shape}: worst error / tolerance {ratio}")
         require(_f32_ratio(lse, ref_lse) <= 1.0, f"c5 flash_fwd_lse lse fp32 {shape} disagrees")
         require(not out_lo.any(), "c5: fp32 out_lo is not zero")
-        print(f"c5 SIMT flash kernels float32 {shape}: max_abs_err out {errs['k1s'][-1]:.3e}, "
-              f"dq {errs['k2s'][-1]:.3e}, dk/dv {errs['k3s'][-1]:.3e} (tol atol = rtol = "
-              f"{F32_TOL})", flush=True)
-        del q, k, v, dout, out, out_l, lse, out_lo, delta, dq, dk, dv, ref, ref_lse, ref_dq, \
-            ref_dk, ref_dv
+        print(f"c5 fp32 flash kernels {shape}: max_abs_err out (SIMT) {errs['k1s'][-1]:.3e}, "
+              f"dq {errs['k2t'][-1]:.3e}, dk/dv {max(errs['k3t'][-2:]):.3e} (3xTF32; tol "
+              f"atol = rtol = {F32_TOL}; worst error / tolerance "
+              f"{ {w: round(r, 3) for w, r in ratios.items()} }); dq, dk, dv bitwise "
+              "repeatable", flush=True)
+        del q, k, v, dout, out, out_l, lse, out_lo, delta, dq, dk, dv, again, ref, ref_lse, \
+            ref_dq, ref_dk, ref_dv
     for nh, nkv, D in ((8, 2, 64), (16, 4, 128), (16, 16, 128), (8, 2, 256)):
         args = _paged_inputs(torch, 300 + D + nkv, 8, 1, 512, 65, 1, nh, nkv, D,
                              dtype=torch.float32)
@@ -2643,6 +2672,20 @@ def _c5_simt_kernels(ctx):
     _c5_time_simt(ctx, errs)
 
 
+def _sdpa_kernels(torch, F, q, k, v, dout, causal):
+    """The CUDA kernels one SDPA forward and backward launch on these inputs
+    (torch.profiler), by name: which of SDPA's backends ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+        torch.autograd.grad(o, leaves, dout.transpose(1, 2))
+        torch.cuda.synchronize()
+    return sorted({e.key[:90] for e in prof.key_averages()
+                   if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0})
+
+
 def _c5_time_simt(ctx, errs):
     import torch
     import torch.nn.functional as F
@@ -2650,7 +2693,9 @@ def _c5_time_simt(ctx, errs):
     from ray_tpu_torch.models import paged_decode as pd
     from ray_tpu_torch.ops import attention as ta
 
-    f32_peaks = (FP32_FLOPS[ctx["peaks_key"]], ctx["peaks"][1])
+    hbm = ctx["peaks"][1]
+    f32_peaks = (FP32_FLOPS[ctx["peaks_key"]], hbm)
+    x3_peaks = (TF32_FLOPS[ctx["peaks_key"]] / 3, hbm)  # 3xTF32: three products for one
 
     def sdpa_fwd(q, k, v, causal):
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -2666,58 +2711,96 @@ def _c5_time_simt(ctx, errs):
                 "dq": (6.0 * b * hq * d * pairs, 4.0 * (3 * q_el + 2 * kv_el) + 8.0 * rows),
                 "dkv": (8.0 * b * hq * d * pairs, 4.0 * (2 * q_el + 4 * kv_el) + 8.0 * rows)}
 
-    def timed(shape, seed):
+    def timed(shape, seed, names):
+        """{name: numbers} for the kernels ``names`` at ``shape``; the
+        library yardstick is SDPA's forward for the forward, SDPA's whole
+        backward (dq, dk, dv) for the backward."""
         causal, scale = shape[-1], shape[5] ** -0.5
         sets = []
         for i in range(2):
             q, k, v, dout = _case(torch, shape, seed + i, torch.float32)
             out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
             sets.append((q, k, v, dout, lse, ta._delta(out, dout, out_lo)))
-        graphs = []
-        for q, k, v, dout, _, _ in sets:
-            leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
-            o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
-            graphs.append((o, leaves, dout.transpose(1, 2)))
-        lib_bwd = cuda_ms(torch, lambda o, leaves, g: torch.autograd.grad(
-            o, leaves, g, retain_graph=True), graphs, iters=5, warmup=1)
-        lib_fwd = cuda_ms(torch, lambda q, k, v, *_: sdpa_fwd(q, k, v, causal), sets, iters=5,
-                          warmup=1)
+        libs = {}
+        if "dq" in names:
+            graphs = []
+            for q, k, v, dout, _, _ in sets:
+                leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+                graphs.append((o, leaves, dout.transpose(1, 2)))
+            libs["bwd"] = cuda_ms(torch, lambda o, leaves, g: torch.autograd.grad(
+                o, leaves, g, retain_graph=True), graphs, iters=5, warmup=1)
+            del graphs
+            print(f"c5 SDPA fp32 at {shape}: backend kernels "
+                  f"{_sdpa_kernels(torch, F, *sets[0][:4], causal)}", flush=True)
+        if names[0].startswith("fwd"):
+            libs["fwd"] = cuda_ms(torch, lambda q, k, v, *_: sdpa_fwd(q, k, v, causal), sets,
+                                  iters=5, warmup=1)
         fns = {"fwd": (lambda q, k, v, *_: ta.flash_attention(q, k, v, causal),
-                       lambda q, k, v, *_: ta.reference_attention(q, k, v, causal), lib_fwd),
+                       lambda q, k, v, *_: ta.reference_attention(q, k, v, causal)),
                "fwd_lse": (lambda q, k, v, *_: ta.flash_attention_lse(q, k, v, causal),
-                           lambda q, k, v, *_: ta.reference_attention_lse(q, k, v, causal),
-                           lib_fwd),
+                           lambda q, k, v, *_: ta.reference_attention_lse(q, k, v, causal)),
                "dq": (lambda *a: ta.flash_bwd_dq(*a, causal, scale),
-                      lambda *a: ta.flash_bwd_dq_reference(*a, causal, scale), lib_bwd),
+                      lambda *a: ta.flash_bwd_dq_reference(*a, causal, scale)),
                "dkv": (lambda *a: ta.flash_bwd_dkv(*a, causal, scale),
-                       lambda *a: ta.flash_bwd_dkv_reference(*a, causal, scale), lib_bwd)}
+                       lambda *a: ta.flash_bwd_dkv_reference(*a, causal, scale))}
         res = {}
-        for name, (fn, plain, lib) in fns.items():
+        for name in names:
+            fn, plain = fns[name]
+            if name in ("dq", "dkv"):  # held to F32_TOL at every timed shape too
+                got, want = fn(*sets[0]), plain(*sets[0])
+                for g_, w_ in zip(*((got, want) if name == "dkv" else ((got,), (want,)))):
+                    ratio = _f32_ratio(g_, w_)
+                    require(bool(torch.isfinite(g_).all()) and ratio <= 1.0,
+                            f"c5 {name} fp32 {shape}: worst error / tolerance {ratio}")
+                    print(f"c5 {name} fp32 {shape}: worst error / tolerance {ratio:.3f}",
+                          flush=True)
+                del got, want
             ms = cuda_ms(torch, fn, sets, iters=5, warmup=1)
             plain_ms = cuda_ms(torch, plain, sets, iters=3, warmup=1)
-            bms, by = bound_ms(*work(shape)[name], f32_peaks)
-            res[name] = (ms, plain_ms, lib, bms, by)
-            print(f"c5 {name} SIMT float32 {shape}: {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, SDPA {lib:.4f} ms ({'forward' if name.startswith('fwd') else 'backward, dq dk dv together'}), "
-                  f"bound {bms:.4f} ms ({by}) on {ctx['card']}", flush=True)
-        del sets, graphs
+            lib = libs["fwd" if name.startswith("fwd") else "bwd"]
+            flops, nbytes = work(shape)[name]
+            cores = bound_ms(flops, nbytes, f32_peaks)
+            bms, by = cores if name.startswith("fwd") else bound_ms(flops, nbytes, x3_peaks)
+            res[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bms,
+                         "bound_by": by, "bound_ms_cuda_cores": cores[0],
+                         "bound_by_cuda_cores": cores[1], "shape": list(shape)}
+            route = "SIMT" if name.startswith("fwd") else "3xTF32"
+            print(f"c5 {name} {route} float32 {shape}: {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                  f"SDPA {lib:.5f} ms ({'forward' if name.startswith('fwd') else 'backward, dq dk dv together'}), "
+                  f"bound {bms:.5f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+                  f"CUDA-core bound {cores[0]:.5f} ms on {ctx['card']}", flush=True)
+        del sets
         torch.cuda.empty_cache()
         return res
 
-    prefill = timed(C5_PREFILL_ATTN, 400)
-    train = timed(C5_TRAIN_ATTN, 410)
-    meta = {"k1s": ("flash_fwd_simt", "ray_tpu/ops/attention.py:71", prefill["fwd"],
-                    C5_PREFILL_ATTN),
-            "k1ls": ("flash_fwd_lse_simt", "ray_tpu/ops/attention.py:155", train["fwd_lse"],
-                     C5_TRAIN_ATTN),
-            "k2s": ("flash_bwd_dq_simt", "ray_tpu/ops/attention.py:182", train["dq"],
-                    C5_TRAIN_ATTN),
-            "k3s": ("flash_bwd_dkv_simt", "ray_tpu/ops/attention.py:224", train["dkv"],
-                    C5_TRAIN_ATTN)}
-    for key, (name, replaces, (ms, plain_ms, lib, bms, by), shape) in meta.items():
-        ctx[key] = {"name": name, "route": "cuda", "source": SIMT_SRC, "replaces": replaces,
-                    "max_abs_err": max(errs[key]), "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib, "shape": list(shape)}
+    prefill = timed(C5_PREFILL_ATTN, 400, ("fwd",))
+    train = timed(C5_TRAIN_ATTN, 410, ("fwd_lse", "dq", "dkv"))
+    meta = {"k1s": ("flash_fwd_simt", SIMT_SRC, "ray_tpu/ops/attention.py:71", prefill["fwd"]),
+            "k1ls": ("flash_fwd_lse_simt", SIMT_SRC, "ray_tpu/ops/attention.py:155",
+                     train["fwd_lse"]),
+            "k2t": ("flash_bwd_dq_tf32x3", F32_BWD_SRC, "ray_tpu/ops/attention.py:182",
+                    train["dq"]),
+            "k3t": ("flash_bwd_dkv_tf32x3", F32_BWD_SRC, "ray_tpu/ops/attention.py:224",
+                    train["dkv"])}
+    for key, (name, src, replaces, numbers) in meta.items():
+        ctx[key] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                    "max_abs_err": max(errs[key]), **numbers}
+        if key in ("k1s", "k1ls"):  # their bound is the CUDA cores'
+            del ctx[key]["bound_ms_cuda_cores"], ctx[key]["bound_by_cuda_cores"]
+    for i, (suffix, shape) in enumerate(F32_BWD_TIMED.items()):
+        more = timed(shape, 440 + 2 * i, ("dq", "dkv"))
+        for key, name in (("k2t", "dq"), ("k3t", "dkv")):
+            ctx[key].update({f"{k}{suffix}": v for k, v in more[name].items()})
+        total = more["dq"]["ms"] + more["dkv"]["ms"]
+        print(f"c5 fp32 backward {shape}: flash_bwd_dq_tf32x3 + flash_bwd_dkv_tf32x3 "
+              f"{total:.5f} ms, SDPA backward {more['dq']['library_ms']:.5f} ms "
+              f"({total / more['dq']['library_ms']:.2f}x) on {ctx['card']}", flush=True)
+    for key, inst in (("k2t", "flash_bwd_dq_tf32x3_kernel<128, 32, 1>"),
+                      ("k3t", "flash_bwd_dkv_tf32x3_kernel<128, 32, 1, 1>")):
+        rep = ctx["ptxas"]["flash_bwd_f32"].get(inst, {})
+        ctx[key].update({k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
+        print(f"c5 {inst} (ptxas): {rep}", flush=True)
     # paged_attention_simt at the c5 fp32 engine's decode: 8 slots of
     # llama_1b's heads, fp32, 1..512 rows on 64-row pages
     sets = [_paged_inputs(torch, 430 + i, 8, 1, 512, 65, 1, 16, 4, 128, max_pages=8,
@@ -2834,14 +2917,15 @@ def _c5_serve(ctx):
 
 def _c5_train(ctx):
     """fp32 training of llama_1b's width at C5_LAYERS layers (save_attn, B2
-    S512) through the SIMT forward with lse, dQ and dK/dV, held against the
-    same work through the plain versions (flash_attention_lse and flash_bwd
-    patched to their references), each from the seed-0 state: the first
-    step's gradients, leaf by leaf, within C5_GRAD_RTOL in relative norm;
-    then 3 train steps at a nonzero learning rate from the first update
-    (warmup_steps=0), each loss within C5_LOSS_RTOL of the plain run's. Each
-    kernel step launches each SIMT kernel once a layer; no call runs a
-    plain version, and the plain run launches nothing."""
+    S512) through the SIMT forward with lse and the 3xTF32 dQ and dK/dV,
+    held against the same work through the plain versions
+    (flash_attention_lse and flash_bwd patched to their references), each
+    from the seed-0 state: the first step's gradients, leaf by leaf, within
+    C5_GRAD_RTOL in relative norm; then 3 train steps at a nonzero learning
+    rate from the first update (warmup_steps=0), each loss within
+    C5_LOSS_RTOL of the plain run's. Each kernel step launches each of the
+    three kernels once a layer; no call runs a plain version, and the plain
+    run launches nothing."""
     import contextlib
     import dataclasses
     import math
@@ -2863,8 +2947,8 @@ def _c5_train(ctx):
     targets = torch.roll(tokens, -1, dims=1)
     step = make_train_step(cfg, opt)
     factory = make_train_state_factory(cfg, opt)
-    want = {"flash_fwd_lse_simt": C5_LAYERS, "flash_bwd_dq_simt": C5_LAYERS,
-            "flash_bwd_dkv_simt": C5_LAYERS}
+    want = {"flash_fwd_lse_simt": C5_LAYERS, "flash_bwd_dq_tf32x3": C5_LAYERS,
+            "flash_bwd_dkv_tf32x3": C5_LAYERS}
 
     def run(plain: bool):
         """(names, first-step gradients, 3 losses, launches of the 3 steps,
@@ -4329,10 +4413,10 @@ def main() -> int:
     # launches: each kernel's count from the run of the path it lies on
     runs = {"k1": ctx["launches"], "k1l": ctx["train_launches"], "k2": ctx["train_launches"],
             "k3": ctx["train_launches"], "k4": ctx["launches"],
-            # the CUDA-core kernels, from the c5 phase's fp32 engine and its
-            # fp32 train steps
+            # the fp32 kernels (the CUDA-core forward and decode, the 3xTF32
+            # backward), from the c5 phase's fp32 engine and its fp32 train steps
             "k1s": ctx["c5_serve_launches"], "k1ls": ctx["c5_train_launches"],
-            "k2s": ctx["c5_train_launches"], "k3s": ctx["c5_train_launches"],
+            "k2t": ctx["c5_train_launches"], "k3t": ctx["c5_train_launches"],
             "k4s": ctx["c5_serve_launches"]}
     kernels = []
     for key, run in runs.items():

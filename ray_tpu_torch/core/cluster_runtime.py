@@ -187,8 +187,8 @@ class ClusterRuntime(CoreRuntime):
 
     # ------------------------------------------------------------- objects
     def _store_admission_call(self, method: str, **params):
-        """A store-write RPC against the local agent, retried while the
-        store is TRANSIENTLY full. Dep pinning (agent dispatch) makes a
+        """A store-write RPC against the local agent (a put, or a restore
+        from spill), retried while the store is TRANSIENTLY full. Dep pinning (agent dispatch) makes a
         running task's args unevictable and unspillable for the task's
         whole dispatch, so under pressure every byte of the store can be
         pinned-or-unsealed for a few seconds at a time; a put landing in
@@ -782,11 +782,16 @@ class ClusterRuntime(CoreRuntime):
                 except FileNotFoundError:
                     # arena slot evicted between the metadata reply and
                     # the copy (or mid-copy): the object may still live
-                    # in spill — re-ensure and retry with fresh metadata
+                    # in spill — re-ensure and retry with fresh metadata.
+                    # Restoring it needs room that running tasks may hold
+                    # pinned for a while (a map over ten times the store
+                    # had 4 x 12 MB of a 48 MB store pinned or unsealed
+                    # under load), so store-full replies are waited out as
+                    # a put waits them out, not raised at once
                     if attempt == 3:
                         raise exc.ObjectLostError(
                             h, "evicted repeatedly during read")
-                    info = self.agent.call(
+                    info = self._store_admission_call(
                         "ensure_local", object_id=h,
                         timeout_s=10.0, timeout=15.0,
                     )

@@ -1,52 +1,46 @@
 // Attention on the CUDA cores for Hopper (sm_90a), in fp32: the flash forward
-// (with or without lse), its two backward kernels (dQ, and dK/dV summed over
-// the GQA group), and paged decode.
+// (with or without lse) and paged decode.
 //
 // Replaces, for the shapes the tensor-core kernels do not take:
 //   ray_tpu/ops/attention.py:_flash_fwd_kernel (:71), with and without lse;
-//   ray_tpu/ops/attention.py:_flash_bwd_dq_kernel (:182);
-//   ray_tpu/ops/attention.py:_flash_bwd_dkv_kernel (:224);
 //   the Pallas library's paged_attention as called by
 //   ray_tpu/models/paged_decode.py:_paged_attention (:93).
 // The reference runs its kernels in any dtype. The bf16 kernels of
-// flash_fwd.cu and flash_bwd.cu (wgmma) tile head dims 64, 128 and 256, and
-// paged_attention.cu (mma.sync) bf16 at 128 and 256. This file takes the
-// rest of what the port's dispatch sends to a kernel: fp32 at head dims 64,
-// 128 and 256, for all four kernels.
+// flash_fwd.cu and flash_bwd.cu (wgmma) tile head dims 64, 128 and 256,
+// paged_attention.cu (mma.sync) bf16 at 128 and 256, and flash_bwd_f32.cu
+// the fp32 backward (dQ, dK/dV) at 64, 128 and 256 in 3xTF32. This file
+// takes the rest of what the port's dispatch sends to a kernel: the fp32
+// forward and the fp32 paged decode at head dims 64, 128 and 256.
 //
 // Precision. fp32 attention is computed with full fp32 products (FFMA on the
 // CUDA cores), not TF32 on the tensor cores: the plain version on the card is
 // full fp32 (torch's float32 matmuls do not use TF32 by default), the JAX
 // tests hold flash against its reference in fp32 at 2e-5, and TF32 keeps
 // about three decimal digits. Sums and exponentials are fp32 (expf, logf: no
-// approximate intrinsics). The reference rounds p and ds to the operands'
-// dtype before their products: in fp32 that is no rounding at all.
+// approximate intrinsics).
 //
 // Bound: at the shapes these kernels see, the products are operations on the
 // CUDA cores (the H100's fp32 rate, 67 TFLOP/s, is 1/15 of bf16 on the tensor
 // cores), so they are bound by operations. The design is the simple tiled
-// one, right first: a block of 128 threads owns BR = 16 rows (q rows in the
-// forward and dQ, kv rows in dK/dV); it streams the other operand in tiles of
-// BC = 64 rows through shared memory, converted to fp32 on load (row stride
+// one, right first: a forward block of 128 threads owns BR = 16 q rows; it
+// streams K and V in tiles of BC = 64 rows through shared memory (row stride
 // D + 1 floats, so the 8 threads of a row read 8 different banks). Thread
 // (r, c) = (tid / 8, tid % 8) computes the scores of its row r against
 // streamed rows c + 8 j, j < 8; the 8 threads of a row are 8 lanes of one warp
 // and reduce the row's max and sum by shuffles; the row's output columns are
 // c + 8 jj. Causal tiles past the diagonal are skipped; ragged edges are
 // masked (causal bottom-right: query row i sees key j iff j <= i + Skv - Sq).
-// dK/dV loops over the group's q heads inside the block and sums them in
-// registers, in head order: no atomics, so every kernel here is bitwise
-// repeatable.
+// No atomics: every kernel here is bitwise repeatable.
 //
 // Paged decode: one block per (q head, slot), 128 threads; the slot's rows in
 // tiles of 64, each K/V row found through the block table; two threads a row
 // for Q.K, block-wide max and sum, each thread owns D / 128 (at least one)
 // output columns of P.V. It reads a kv head's rows once per q head.
 //
-// Layouts as in flash_fwd.cu, flash_bwd.cu and paged_attention.cu: q/out/dq
-// [B, Sq, Hq, D], k/v/dk/dv [B, Skv, Hkv, D], lse/delta [B, Hq, Sq] fp32;
-// pools [n_kv, total_pages, page_size, D], table [B, max_pages] int32, lengths
-// [B] int32, q/out [B, nh, D]. All contiguous.
+// Layouts as in flash_fwd.cu and paged_attention.cu: q/out [B, Sq, Hq, D],
+// k/v [B, Skv, Hkv, D], lse [B, Hq, Sq] fp32; pools [n_kv, total_pages,
+// page_size, D], table [B, max_pages] int32, lengths [B] int32, q/out
+// [B, nh, D]. All contiguous.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,11 +49,11 @@
 namespace {
 
 constexpr int NT = 128;        // threads a block
-constexpr int BR = 16;         // rows a block owns
+constexpr int BR = 16;         // q rows a forward block owns
 constexpr int BC = 64;         // rows of the streamed operand a tile
 constexpr int TPR = NT / BR;   // threads a row: 8 lanes of one warp
 constexpr int CPT = BC / TPR;  // streamed rows a thread scores: 8
-constexpr int PLD = BC + 1;    // row stride of the p / ds tiles
+constexpr int PLD = BC + 1;    // row stride of the p tile
 constexpr float NEG = -1e30f;
 constexpr int F32 = 0;  // the entries' dtype code (the wrappers pass 1 for bf16, refused)
 
@@ -168,153 +162,6 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     if (out_lo != nullptr) out_lo[row + c + TPR * jj] = 0.f;
   }
   if (lse != nullptr && c == 0) lse[((long)b * Hq + h) * Sq + qi] = m + logf(lsafe);
-}
-
-// ---------------------------------------------------------------------------
-// dQ: grid (ceil(Sq / BR), Hq, B).
-template <int D>
-__global__ void __launch_bounds__(NT)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
-          int causal, float scale) {
-  constexpr int LD = D + 1;
-  extern __shared__ float sm[];
-  float* sQ = sm;                // [BR][LD]
-  float* sO = sQ + BR * LD;      // [BR][LD]: dO
-  float* sK = sO + BR * LD;      // [BC][LD]
-  float* sV = sK + BC * LD;      // [BC][LD]
-  float* sS = sV + BC * LD;      // [BR][PLD]: ds
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int off = Skv - Sq;
-  const int q0 = blockIdx.x * BR;
-  const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
-  const int qi = q0 + r;
-  const long qs = (long)Hq * D, ks = (long)Hkv * D;
-  const float* kb = k + (long)b * Skv * ks + (long)hk * D;
-  const float* vb = v + (long)b * Skv * ks + (long)hk * D;
-  load_rows<D>(sQ, q + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
-  load_rows<D>(sO, dout + (long)b * Sq * qs + (long)h * D, qs, q0, BR, Sq);
-  const long rrow = ((long)b * Hq + h) * Sq + qi;
-  const float lse_r = qi < Sq ? lse[rrow] : 0.f;
-  const float delta_r = qi < Sq ? delta[rrow] : 0.f;
-  const int kend = causal ? min(Skv, min(q0 + BR, Sq) + off) : Skv;
-
-  float acc[D / TPR];
-#pragma unroll
-  for (int jj = 0; jj < D / TPR; ++jj) acc[jj] = 0.f;
-  for (int k0 = 0; k0 < kend; k0 += BC) {
-    __syncthreads();
-    load_rows<D>(sK, kb, ks, k0, BC, Skv);
-    load_rows<D>(sV, vb, ks, k0, BC, Skv);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int kj = k0 + c + TPR * j;
-      const bool seen = qi < Sq && kj < Skv && (!causal || kj <= qi + off);
-      float ds = 0.f;
-      if (seen) {
-        const float p = expf(dot(sQ + r * LD, sK + (c + TPR * j) * LD, D) * scale - lse_r);
-        const float dp = dot(sO + r * LD, sV + (c + TPR * j) * LD, D);
-        ds = p * (dp - delta_r) * scale;
-      }
-      sS[r * PLD + c + TPR * j] = ds;
-    }
-    __syncwarp();
-    for (int kk = 0; kk < BC; ++kk) {
-      const float ds = sS[r * PLD + kk];
-#pragma unroll
-      for (int jj = 0; jj < D / TPR; ++jj)
-        acc[jj] = fmaf(ds, sK[kk * LD + c + TPR * jj], acc[jj]);
-    }
-  }
-  if (qi >= Sq) return;
-  const long row = ((long)b * Sq + qi) * qs + (long)h * D;
-#pragma unroll
-  for (int jj = 0; jj < D / TPR; ++jj) dq[row + c + TPR * jj] = acc[jj];
-}
-
-// ---------------------------------------------------------------------------
-// dK/dV: grid (ceil(Skv / BR), Hkv, B); the group's q heads in order.
-template <int D>
-__global__ void __launch_bounds__(NT)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Sq,
-           int Skv, int Hq, int Hkv, int causal, float scale) {
-  constexpr int LD = D + 1;
-  extern __shared__ float sm[];
-  float* sK = sm;                // [BR][LD]
-  float* sV = sK + BR * LD;      // [BR][LD]
-  float* sQ = sV + BR * LD;      // [BC][LD]
-  float* sO = sQ + BC * LD;      // [BC][LD]: dO
-  float* sP = sO + BC * LD;      // [BR][PLD]
-  float* sS = sP + BR * PLD;     // [BR][PLD]
-  float* sL = sS + BR * PLD;     // [BC]: lse
-  float* sD = sL + BC;           // [BC]: delta
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int off = Skv - Sq;
-  const int k0 = blockIdx.x * BR;
-  const int r = threadIdx.x / TPR, c = threadIdx.x % TPR;
-  const int kr = k0 + r;
-  const long qs = (long)Hq * D, ks = (long)Hkv * D;
-  load_rows<D>(sK, k + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
-  load_rows<D>(sV, v + (long)b * Skv * ks + (long)hk * D, ks, k0, BR, Skv);
-  // the first q row that sees any key of the tile
-  const int qstart = causal ? max(0, k0 - off) : 0;
-
-  float gk[D / TPR], gv[D / TPR];
-#pragma unroll
-  for (int jj = 0; jj < D / TPR; ++jj) gk[jj] = gv[jj] = 0.f;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const float* qb = q + (long)b * Sq * qs + (long)h * D;
-    const float* ob = dout + (long)b * Sq * qs + (long)h * D;
-    const float* lb = lse + ((long)b * Hq + h) * Sq;
-    const float* db = delta + ((long)b * Hq + h) * Sq;
-    for (int q0 = qstart; q0 < Sq; q0 += BC) {
-      __syncthreads();
-      load_rows<D>(sQ, qb, qs, q0, BC, Sq);
-      load_rows<D>(sO, ob, qs, q0, BC, Sq);
-      for (int i = threadIdx.x; i < BC; i += NT) {
-        sL[i] = q0 + i < Sq ? lb[q0 + i] : 0.f;
-        sD[i] = q0 + i < Sq ? db[q0 + i] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int t = c + TPR * j;
-        const int qi = q0 + t;
-        const bool seen = kr < Skv && qi < Sq && (!causal || kr <= qi + off);
-        float p = 0.f, ds = 0.f;
-        if (seen) {
-          p = expf(dot(sQ + t * LD, sK + r * LD, D) * scale - sL[t]);
-          const float dp = dot(sO + t * LD, sV + r * LD, D);
-          ds = p * (dp - sD[t]) * scale;
-        }
-        sP[r * PLD + t] = p;
-        sS[r * PLD + t] = ds;
-      }
-      __syncwarp();
-      for (int t = 0; t < BC; ++t) {
-        const float p = sP[r * PLD + t], ds = sS[r * PLD + t];
-#pragma unroll
-        for (int jj = 0; jj < D / TPR; ++jj) {
-          gv[jj] = fmaf(p, sO[t * LD + c + TPR * jj], gv[jj]);
-          gk[jj] = fmaf(ds, sQ[t * LD + c + TPR * jj], gk[jj]);
-        }
-      }
-    }
-  }
-  if (kr >= Skv) return;
-  const long row = ((long)b * Skv + kr) * ks + (long)hk * D;
-#pragma unroll
-  for (int jj = 0; jj < D / TPR; ++jj) {
-    dk[row + c + TPR * jj] = gk[jj];
-    dv[row + c + TPR * jj] = gv[jj];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -431,35 +278,6 @@ int fwd_launch(const void* q, const void* k, const void* v, void* out, void* lse
 }
 
 template <int D>
-int dq_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
-              float scale, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * ((2 * BR + 2 * BC) * (D + 1) + BR * PLD);
-  cudaError_t err = allow_smem(dq_kernel<D>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dq_kernel<D><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), Sq, Skv, Hq, Hkv, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int dkv_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
-               int causal, float scale, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * ((2 * BR + 2 * BC) * (D + 1) + 2 * BR * PLD + 2 * BC);
-  cudaError_t err = allow_smem(dkv_kernel<D>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dkv_kernel<D><<<dim3((Skv + BR - 1) / BR, Hkv, B), NT, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), Sq,
-      Skv, Hq, Hkv, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int paged_launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
                  const void* lengths, void* out, int B, int nh, int n_kv, int total_pages,
                  int page_size, int max_pages, cudaStream_t st) {
@@ -500,34 +318,6 @@ extern "C" int simt_flash_fwd(const void* q, const void* k, const void* v, void*
 #define FWD(DIM) fwd_launch<DIM>(q, k, v, out, lse, out_lo, B, Sq, Skv, Hq, Hkv, causal, scale, st)
   SIMT_F32(FWD)
 #undef FWD
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int simt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dq, int B, int Sq,
-                                 int Skv, int Hq, int Hkv, int D, int causal, float scale,
-                                 int dtype, void* stream) {
-  if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DQ(DIM) \
-  dq_launch<DIM>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, st)
-  SIMT_F32(DQ)
-#undef DQ
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int simt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, void* dk, void* dv, int B,
-                                  int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-                                  float scale, int dtype, void* stream) {
-  if (B == 0) return (int)cudaSuccess;
-  if (int err = check_shape(B, Sq, Skv, Hq, Hkv)) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DKV(DIM) \
-  dkv_launch<DIM>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, scale, st)
-  SIMT_F32(DKV)
-#undef DKV
   return (int)cudaErrorInvalidValue;
 }
 

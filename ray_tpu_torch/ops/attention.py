@@ -17,11 +17,13 @@ Port of ray_tpu/ops/attention.py.
 - ``flash_bwd`` wraps the two backward kernels (``csrc/flash_bwd.cu``): dQ
   (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 64, 128
   or 256, any number of q heads per kv head.
-- The same wrappers send fp32 at head dim 64, 128 or 256 to the CUDA-core
-  kernels of ``csrc/attention_simt.cu`` (full fp32 products, no TF32),
-  which count under their own names with ``_simt`` appended
-  (``flash_fwd_simt``, ``flash_fwd_lse_simt``, ``flash_bwd_dq_simt``,
-  ``flash_bwd_dkv_simt``). ``simt_route`` decides, by kernel, dtype and
+- The same wrappers send the fp32 forward at head dim 64, 128 or 256 to the
+  CUDA-core kernel of ``csrc/attention_simt.cu`` (full fp32 products, no
+  TF32), which counts under its own names with ``_simt`` appended
+  (``flash_fwd_simt``, ``flash_fwd_lse_simt``), and the fp32 backward at
+  those head dims to the tensor-core kernels of ``csrc/flash_bwd_f32.cu``
+  (3xTF32 products, fp32-accurate), counted as ``flash_bwd_dq_tf32x3`` and
+  ``flash_bwd_dkv_tf32x3``. ``simt_route`` decides, by kernel, dtype and
   head dim. In fp32 ``out_lo`` is zeros. ``delta = rowsum(dO * O)`` is computed
   here in fp32, outside the kernels, as the JAX package computes it, but
   from ``out + out_lo``: ``delta`` has to equal the sum over keys of
@@ -67,6 +69,7 @@ block tiling accepts the lse blocks, and the card has no such rule.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -75,13 +78,17 @@ from ray_tpu_torch import _kernels
 
 NEG_INF = -1e30
 FWD_LIB, BWD_LIB, SIMT_LIB = "flash_fwd", "flash_bwd", "attention_simt"
+F32_BWD_LIB = "flash_bwd_f32"
 # The head dims the kernels take, forward and backward alike, at any GQA
 # group (Hq % Hkv == 0): in bf16 the tensor-core kernels at WGMMA_DIMS of
-# theirs and the CUDA-core kernels at the rest; in fp32 the CUDA-core kernels
-# at all three.
+# theirs and the CUDA-core kernels at the rest; in fp32 the 3xTF32
+# tensor-core kernels at TF32X3_DIMS of theirs and the CUDA-core kernels at
+# the rest (the forward at all three).
 KERNEL_DIMS = (64, 128, 256)
 WGMMA_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
               "flash_bwd_dkv": (64, 128, 256)}
+TF32X3_DIMS = {"flash_bwd_dq": (64, 128, 256), "flash_bwd_dkv": (64, 128, 256)}
+F32_DKV_KEYS = 64  # keys a block of the fp32 dK/dV kernel owns (ROWS of flash_bwd_f32.cu)
 SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN = "attention_plain"
 
@@ -89,13 +96,13 @@ PLAIN = "attention_plain"
 # --------------------------------------------------------------------------- #
 # Plain versions
 # --------------------------------------------------------------------------- #
-def _masked_logits(q, k, causal: bool, scale: float):
+def _masked_logits(q, k, causal: bool, scale: float, einsum=torch.einsum):
     """fp32 scaled logits [B, Hq, Sq, Skv], masked to NEG_INF, with kv heads
     repeated onto their q heads."""
     sq, hq = q.shape[1], q.shape[2]
     skv, hkv = k.shape[1], k.shape[2]
     k = k.float().repeat_interleave(hq // hkv, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * scale
+    logits = einsum("bqhd,bkhd->bhqk", q.float(), k) * scale
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
         kpos = torch.arange(skv, device=q.device)[None, :]
@@ -134,29 +141,33 @@ def _delta(out, dout, out_lo=None):
     return (dout.float() * o).sum(-1).transpose(1, 2).contiguous()
 
 
-def _ds_and_p(q, k, v, lse, delta, dout, causal: bool, scale: float):
-    logits = _masked_logits(q, k, causal, scale)
+def _ds_and_p(q, k, v, lse, delta, dout, causal: bool, scale: float, einsum=torch.einsum):
+    logits = _masked_logits(q, k, causal, scale, einsum)
     p = torch.exp(logits - lse[..., None].float())
     v = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v)
+    dp = einsum("bqhd,bkhd->bhqk", dout.float(), v)
     return p * (dp - delta[..., None]) * scale, p
 
 
-def flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal: bool, scale: float):
-    """The plain version of K2: dq = (p * (dO.V^T - delta) * scale) . K."""
-    ds, _ = _ds_and_p(q, k, v, lse, delta, dout, causal, scale)
+def flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                           einsum=torch.einsum):
+    """The plain version of K2: dq = (p * (dO.V^T - delta) * scale) . K.
+    ``einsum`` computes its products (tests pass an emulation of the
+    kernels' 3xTF32 ones)."""
+    ds, _ = _ds_and_p(q, k, v, lse, delta, dout, causal, scale, einsum)
     k = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k).to(q.dtype)
+    return einsum("bhqk,bkhd->bqhd", ds, k).to(q.dtype)
 
 
-def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool, scale: float):
+def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool, scale: float,
+                            einsum=torch.einsum):
     """The plain version of K3: dv = p^T . dO and dk = ds^T . Q per q head,
-    then summed onto the kv heads."""
+    then summed onto the kv heads (``einsum`` as in K2's)."""
     b, _, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    ds, p = _ds_and_p(q, k, v, lse, delta, dout, causal, scale)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    ds, p = _ds_and_p(q, k, v, lse, delta, dout, causal, scale, einsum)
+    dv = einsum("bhqk,bqhd->bkhd", p, dout.float())
+    dk = einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = dv.reshape(b, skv, hkv, hq // hkv, d).sum(3)
     dk = dk.reshape(b, skv, hkv, hq // hkv, d).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -192,16 +203,32 @@ def _check_shapes(q, k, v, causal: bool) -> None:
 def simt_route(kernel: str, dtype, head_dim: int) -> bool:
     """Whether a CUDA call of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") in this dtype and head dim goes to the CUDA-core
-    kernels (``csrc/attention_simt.cu``): fp32 at any head dim the kernels
-    tile. bf16 goes to the tensor-core kernels at the head dims of
-    ``WGMMA_DIMS[kernel]`` (64, 128 and 256 for every kernel); anything
-    else raises."""
+    kernels (``csrc/attention_simt.cu``). bf16 goes to the tensor-core
+    kernels at the head dims of ``WGMMA_DIMS[kernel]``, fp32 to the 3xTF32
+    tensor-core kernels (``csrc/flash_bwd_f32.cu``) at those of
+    ``TF32X3_DIMS.get(kernel)``: today every head dim the kernels tile,
+    except the fp32 forward, which stays on the CUDA cores. Anything else
+    raises."""
     if head_dim not in KERNEL_DIMS:
         raise ValueError(f"{kernel} kernel takes head_dim "
                          f"{' or '.join(map(str, KERNEL_DIMS))}, got {head_dim}")
     if dtype not in SIMT_DTYPES:
         raise ValueError(f"{kernel} kernel takes bfloat16 or float32, got {dtype}")
-    return dtype == torch.float32 or head_dim not in WGMMA_DIMS[kernel]
+    if dtype == torch.float32:
+        return head_dim not in TF32X3_DIMS.get(kernel, ())
+    return head_dim not in WGMMA_DIMS[kernel]
+
+
+def dkv_split_count(b: int, skv: int, hkv: int, group: int, sms: int) -> int:
+    """Blocks the fp32 dK/dV kernel gives each (key tile, kv head, batch):
+    the smallest divisor of the GQA group that brings the grid to two
+    blocks an SM (each block then takes group / splits q heads, and a
+    second pass sums the partials in split order), else the whole group."""
+    base = -(-skv // F32_DKV_KEYS) * hkv * b
+    for splits in range(1, group + 1):
+        if group % splits == 0 and base * splits >= 2 * sms:
+            return splits
+    return group
 
 
 def _launch_fwd(q, k, v, causal: bool, scale: float, training: bool):
@@ -288,31 +315,32 @@ _BWD_ARGTYPES = {
     + [ctypes.c_float, ctypes.c_void_p],
     "flash_bwd_dkv_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
-    "simt_flash_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "simt_flash_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    "flash_bwd_dq_tf32x3": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_bwd_dkv_tf32x3": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 
 
-def _launch_bwd(name: str, tensors, q, k, causal: bool, scale: float) -> None:
-    """One launch of K2 (``name`` "flash_bwd_dq") or K3 ("flash_bwd_dkv"),
-    on the tensor-core or the CUDA-core kernel by ``simt_route``."""
+def _launch_bwd(name: str, tensors, q, k, causal: bool, scale: float, splits=None) -> None:
+    """One launch of K2 (``name`` "flash_bwd_dq") or K3 ("flash_bwd_dkv"):
+    bf16 on the wgmma kernels, fp32 on the 3xTF32 ones (``splits``: K3's
+    blocks along the group, whose ``tensors`` end with the workspace)."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    simt = simt_route(name, q.dtype, d)
-    args = [*(_kernels.ptr(t) for t in tensors), b, sq, skv, hq, hkv, d, int(causal),
-            float(scale)]
-    if simt:
-        lib, symbol = _kernels.library(SIMT_LIB), f"simt_{name}"
-        args.append(SIMT_DTYPES[q.dtype])
+    simt_route(name, q.dtype, d)  # raises on a head dim or dtype no kernel takes
+    args = [*(ctypes.c_void_p(None if t is None else t.data_ptr()) for t in tensors),
+            b, sq, skv, hq, hkv, d, int(causal), float(scale)]
+    if q.dtype == torch.float32:
+        lib, symbol = _kernels.library(F32_BWD_LIB), f"{name}_tf32x3"
+        args += [] if splits is None else [splits]
+        name = symbol  # the launch count's name
     else:
         lib, symbol = _kernels.library(BWD_LIB), f"{name}_bf16"
     fn = getattr(lib, symbol)
     fn.argtypes = _BWD_ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     err = fn(*args, _kernels.stream_of(q))
-    name += "_simt" if simt else ""
     _kernels.check(lib, err, name)
     _kernels.launch_counts[name] += 1
 
@@ -336,11 +364,25 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """K3's wrapper: (dk, dv), each [B, Skv, Hkv, D] in k's dtype, the GQA
-    group summed inside the kernel."""
+    group summed inside the kernel (in fp32, where the grid would not fill
+    the card, over ``dkv_split_count`` blocks and a second pass)."""
     _check_bwd_inputs(q, k, v, dout, lse, delta, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), q, k, causal, scale)
+    if q.dtype != torch.float32:
+        _launch_bwd("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), q, k, causal, scale)
+        return dk, dv
+    b, skv, hkv, _ = k.shape
+    splits = dkv_split_count(b, skv, hkv, q.shape[2] // hkv, _sm_count(q.device))
+    ws = torch.empty((2, splits, *k.shape), dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
+    _launch_bwd("flash_bwd_dkv", (q, k, v, dout, lse, delta, dk, dv, ws), q, k, causal, scale,
+                splits)
     return dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_bwd(q, k, v, out, lse, dout, causal: bool = True, scale: Optional[float] = None,

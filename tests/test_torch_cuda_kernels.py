@@ -357,15 +357,21 @@ def test_flash_bwd_matches_plain(dev, b, sq, skv, hq, hkv, d, causal):
         _close_grad(got, ref)
 
 
-@pytest.mark.parametrize("hkv,d,causal", [(4, 128, True), (16, 64, False), (2, 256, True)])
-def test_flash_bwd_is_deterministic(dev, hkv, d, causal):
+@pytest.mark.parametrize("hkv,d,causal,dtype", [
+    (4, 128, True, torch.bfloat16), (16, 64, False, torch.bfloat16),
+    (2, 256, True, torch.bfloat16),
+    # fp32 (flash_bwd_f32.cu): dK/dV over 4 splits of the group and a second pass at
+    # group 4 (11 key tiles x 4 kv heads x 2 = 88 blocks), the whole group a block
+    # at group 1
+    (4, 128, True, torch.float32), (16, 64, False, torch.float32),
+    (2, 256, True, torch.float32)])
+def test_flash_bwd_is_deterministic(dev, hkv, d, causal, dtype):
     """Two launches on the same inputs give bitwise-equal dq, dk and dv: the
-    kernels sum in a fixed order (the GQA group in registers), with no
-    atomics."""
+    kernels sum in a fixed order (the GQA group in registers, fp32's splits
+    in split order), with no atomics."""
     g = torch.Generator(device=dev).manual_seed(4)
-    q, k, v = _bf16((2, 300, 16, d), g, dev), _bf16((2, 700, hkv, d), g, dev), \
-        _bf16((2, 700, hkv, d), g, dev)
-    dout = _bf16((2, 300, 16, d), g, dev)
+    q, k, v, dout = (torch.randn(s, generator=g, device=dev).to(dtype) for s in
+                     ((2, 300, 16, d), (2, 700, hkv, d), (2, 700, hkv, d), (2, 300, 16, d)))
     out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
     runs = [ta.flash_bwd(q, k, v, out, lse, dout, causal, out_lo=out_lo) for _ in range(2)]
     torch.cuda.synchronize()
@@ -418,7 +424,7 @@ def test_flash_op_gradients_match_plain(dev, b, sq, skv, causal):
 # (chip_smoke.py's model-phase tolerance): max |diff| / max |fp32|.
 MODEL_RTOL = 5e-2
 KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention")
-KERNELS += tuple(f"{n}_simt" for n in KERNELS)
+KERNELS += tuple(f"{n}_simt" for n in KERNELS) + ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")
 PLAINS = ("attention_plain", "paged_attention_plain")
 
 
@@ -1001,7 +1007,8 @@ SIMT_CASES = [  # (b, sq, skv, hq, hkv, d, causal)
 @pytest.mark.parametrize("shape", SIMT_CASES)
 def test_simt_kernels_fp32_match_plain(dev, shape):
     """The forward (with and without lse), dQ and dK/dV in fp32 against the
-    plain versions at 2e-5; each launches its _simt kernel once."""
+    plain versions at 2e-5; the forward launches its _simt kernel once, dQ
+    and dK/dV their 3xTF32 tensor-core kernels (flash_bwd_f32.cu)."""
     causal, scale = shape[-1], shape[5] ** -0.5
     q, k, v, dout = _f32_case(shape, sum(shape[:6]), dev)
     before = _counts()
@@ -1012,12 +1019,51 @@ def test_simt_kernels_fp32_match_plain(dev, shape):
     dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
     torch.cuda.synchronize()
     assert _delta(before) == {"flash_fwd_simt": 1, "flash_fwd_lse_simt": 1,
-                              "flash_bwd_dq_simt": 1, "flash_bwd_dkv_simt": 1}
+                              "flash_bwd_dq_tf32x3": 1, "flash_bwd_dkv_tf32x3": 1}
     ref, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
     _close_f32(out, ref)
     _close_f32(out_l, ref)
     _close_f32(lse, ref_lse)
     assert not out_lo.any()
+    _close_f32(dq, ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale))
+    for got, want in zip((dk, dv), ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                                               causal, scale)):
+        _close_f32(got, want)
+
+
+F32_BWD_CASES = [  # (b, sq, skv, hq, hkv, d, causal): flash_bwd_f32.cu
+    (2, 512, 512, 16, 4, 128, True),   # the c5 fp32 train step: dK/dV in 4 splits
+    (1, 1024, 1024, 4, 4, 128, True),  # group 1, 32 key tiles of dQ, 32 q tiles of dK/dV
+    (1, 4096, 4096, 8, 2, 128, True),  # dK/dV summed over 4 x 4096 q rows: the fp32 adds
+    (2, 100, 300, 8, 2, 128, True),    # ragged, Sq < Skv, bottom-right causal
+    (2, 77, 50, 4, 1, 128, False),     # not causal, Sq > Skv
+    (1, 1, 65, 8, 1, 128, True),       # one query row, group 8
+    (1, 20, 20, 8, 8, 128, False),     # fewer keys than a tile
+    (2, 196, 196, 16, 16, 64, False),  # D64, group 1, ViT's 196 rows
+    (1, 129, 129, 8, 2, 64, True),     # D64, one row past a tile
+    (1, 300, 700, 8, 1, 64, True),     # D64, group 8, Sq < Skv
+    (1, 1, 200, 4, 4, 64, False),      # D64, one query row, not causal
+    (1, 1024, 1024, 8, 2, 256, True),  # D256, 32 key tiles through the one-stage ring
+    (2, 96, 96, 2, 2, 256, False),     # D256, group 1
+    (1, 65, 200, 8, 1, 256, True),     # D256, group 8, Sq < Skv
+    (1, 100, 70, 4, 1, 256, False),    # D256, not causal, Sq > Skv
+    (1, 20, 20, 4, 1, 256, True),      # D256, fewer keys than a tile
+]
+
+
+@pytest.mark.parametrize("shape", F32_BWD_CASES)
+def test_flash_bwd_fp32_matches_plain(dev, shape):
+    """dQ and dK/dV in fp32 on the tensor cores (3xTF32) against the plain
+    backward in full fp32 at 2e-5, one launch each."""
+    causal, scale = shape[-1], shape[5] ** -0.5
+    q, k, v, dout = _f32_case(shape, sum(shape[:6]) + 7, dev)
+    out, lse, out_lo = ta.flash_attention_lse(q, k, v, causal)
+    delta = ta._delta(out, dout, out_lo)
+    before = _counts()
+    dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"flash_bwd_dq_tf32x3": 1, "flash_bwd_dkv_tf32x3": 1}
     _close_f32(dq, ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale))
     for got, want in zip((dk, dv), ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                                                causal, scale)):

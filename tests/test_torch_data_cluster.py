@@ -141,10 +141,34 @@ def test_distributed_sort_1m_rows(clusters):
     assert _on_clusters(clusters, _sort_1m) == (1_000_000, 999_999, True)
 
 
-def _map_10x_store(P, _cluster):
-    # the sort's blocks free after the distributed-GC grace window; wait for
-    # the store to drain so this measures ITS OWN pressure
-    time.sleep(2 * 2.0 + 2.0)  # 2x object_ref_grace_s + flush slack
+def _store_used(P, cluster):
+    """Bytes each node's store holds (its agent's node_info)."""
+    used = []
+    for node in cluster.nodes:
+        agent = _mod(P, "core.rpc").SyncRpcClient(node.address)
+        try:
+            used.append(agent.call("node_info")["store"]["used"])
+        finally:
+            agent.close()
+    return used
+
+
+def _wait_drained(P, cluster, below=1 << 20, limit_s=60.0):
+    """Until every node's store holds less than ``below`` bytes, or
+    ``limit_s``: the previous scenario's blocks free after the
+    distributed-GC grace window (2 x object_ref_grace_s; the sort's 24 MB
+    were gone 2.5 s after it on an idle host), which a loaded host
+    stretches, so its end is waited for, not assumed. A few KB may stay
+    (2.5 KB did, under load), so drained is less than 1 MB, not empty."""
+    deadline = time.monotonic() + limit_s
+    while max(_store_used(P, cluster)) >= below and time.monotonic() < deadline:
+        time.sleep(0.25)
+
+
+def _map_10x_store(P, cluster):
+    # the sort's blocks free after the GC grace window: wait for the stores to
+    # drain so this measures ITS OWN pressure
+    _wait_drained(P, cluster)
     block_rows, n_blocks = 1_500_000, 40  # 40 x 12 MB float64 through a 48 MB store
 
     def source():

@@ -141,15 +141,33 @@ def test_flash_dispatch_rule(d, grad, tiles):
     ("flash_fwd", torch.bfloat16, 128, False),
     ("flash_bwd_dq", torch.bfloat16, 64, False),
     ("flash_bwd_dkv", torch.bfloat16, 128, False),
-    ("flash_fwd", torch.float32, 64, True),        # fp32: the CUDA cores at every head dim
+    ("flash_fwd", torch.float32, 64, True),        # the fp32 forward: the CUDA cores
     ("flash_fwd", torch.float32, 128, True),
     ("flash_fwd", torch.float32, 256, True),
-    ("flash_bwd_dq", torch.float32, 128, True),
-    ("flash_bwd_dkv", torch.float32, 256, True),
+    ("flash_bwd_dq", torch.float32, 128, False),   # the fp32 backward: 3xTF32 tensor cores
+    ("flash_bwd_dkv", torch.float32, 256, False),
+    ("flash_bwd_dq", torch.float32, 64, False),
+    ("flash_bwd_dq", torch.float32, 256, False),
+    ("flash_bwd_dkv", torch.float32, 64, False),
+    ("flash_bwd_dkv", torch.float32, 128, False),
 ])
 def test_simt_route(kernel, dtype, d, simt):
     """Which kernels a CUDA call reaches, by kernel, dtype and head dim."""
     assert ta.simt_route(kernel, dtype, d) is simt
+
+
+@pytest.mark.parametrize("b,skv,hkv,group,sms,splits", [
+    (2, 512, 4, 4, 132, 4),     # the c5 fp32 train step: 64 blocks, so one a q head
+    (8, 2048, 4, 4, 132, 1),    # llama_1b's training shape: 1024 blocks fill the card
+    (1, 128, 2, 8, 132, 8),     # few blocks: every q head on its own
+    (2, 512, 4, 6, 132, 6),     # splits divide the group
+    (2, 512, 8, 2, 132, 2),
+    (4, 1024, 8, 4, 132, 1),
+])
+def test_dkv_split_count(b, skv, hkv, group, sms, splits):
+    """The fp32 dK/dV kernel's blocks along the GQA group: the smallest
+    divisor of the group that makes two blocks an SM, else the group."""
+    assert ta.dkv_split_count(b, skv, hkv, group, sms) == splits
 
 
 @pytest.mark.parametrize("kernel,dtype,d,match", [
