@@ -115,13 +115,17 @@ Phases, all of them on every run, in this order:
            beside SDPA's backward and the bound, with their ptxas registers
            and spills (a spill fails the phase); (c) every fp32 kernel at
            D64/128/256 (atol = rtol = 2e-5) against its plain version: the
-           CUDA-core forward and decode of csrc/attention_simt.cu and the
-           3xTF32 tensor-core dQ and dK/dV of csrc/flash_bwd_f32.cu (these
-           twice, bitwise equal), then timed at the c5 paths' shapes beside
-           SDPA (its kernels' names printed) and the bound (fp32 operations
-           at the CUDA cores' 67 TFLOP/s; for the 3xTF32 pair at a third of
-           the TF32 peak, with the CUDA cores' beside it), the pair also at
-           B8 S2048 and at D64 and D256; (d) LLMEngine at llama_1b's width
+           3xTF32 tensor-core forward (K1, K1') of csrc/flash_fwd_f32.cu
+           and dQ and dK/dV of csrc/flash_bwd_f32.cu, and the decode (K4)
+           of csrc/paged_attention_f32.cu (each twice, bitwise equal; the
+           decode also at groups 1 and 8 and 4 slots of 1537..2048 rows),
+           then timed at the c5 paths' shapes beside SDPA (its kernels'
+           names printed) and the bound (for the 3xTF32 kernels their
+           operations at a third of the TF32 peak, with the CUDA cores'
+           67 TFLOP/s beside it; bytes for the decode), the forward and the
+           backward also at B8 S2048 and at D64 and D256, the decode also
+           graph-timed (device_ms), on the host clock (host_us) and at the
+           long shape; (d) LLMEngine at llama_1b's width
            with 2 layers for MHA, group 8 and D256 in bf16 and group 4 in fp32, 8
            requests each, exact launches of each route's kernels, fp32
            tokens equal to the plain path's (bf16: how many requests'
@@ -231,18 +235,20 @@ launches_cluster, from the cluster phase's replica process, and
 launches_cluster_apps, from the cluster_apps phase's replica behind the RPC
 ingress; all five carry launches_ops_shell, from the ops_shell phase's
 actor on the autoscaled node: its 4 prompts for the first two, its 3 train
-steps for the other three; the fp32 kernels' launches (the CUDA-core
-forward and decode, the 3xTF32 dQ and dK/dV) come from the c5 phase's fp32
+steps for the other three; the fp32 kernels' launches (the 3xTF32
+forward, dQ and dK/dV, the fp32 decode) come from the c5 phase's fp32
 engine and its fp32 train steps; flash_fwd_lse, flash_bwd_dq
 and flash_bwd_dkv also carry launches_c5_d256, from the c5 phase's bf16
 D256 train steps). The entries of flash_fwd, flash_fwd_lse, flash_bwd_dq
 and flash_bwd_dkv also carry their D256 instances' numbers, keys suffixed
 _d256 (the c5 prefill shape) and _d256_s2048 (B8 S2048), and their ptxas
-registers and spills; flash_bwd_dq_tf32x3's and flash_bwd_dkv_tf32x3's
-their numbers at F32_BWD_TIMED's shapes (keys suffixed _s2048, _d64,
-_d256) and bound_ms_cuda_cores, the bound at the CUDA cores' rate;
-paged_attention's the c5 phase's widened shapes, keys suffixed
-_g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
+registers and spills; flash_fwd_lse_tf32x3's, flash_bwd_dq_tf32x3's and
+flash_bwd_dkv_tf32x3's their numbers at F32_TIMED's shapes (keys suffixed
+_s2048, _d64, _d256), and those and flash_fwd_tf32x3's bound_ms_cuda_cores,
+the bound at the CUDA cores' rate, and their ptxas registers and spills;
+paged_attention_f32's device_ms, host_us and the long shape (keys
+suffixed _long); paged_attention's the c5 phase's widened shapes, keys
+suffixed _g<group>_d<head dim>. A copy of the results goes to build/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -394,7 +400,8 @@ def phase_device(ctx):
     ctx["build_s"] = secs
     print(f"kernel build: {secs:.1f} s", flush=True)
     ctx["ptxas"] = {}
-    for name in ("flash_fwd", "flash_bwd", "paged_attention", "attention_simt", "flash_bwd_f32"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention", "flash_fwd_f32", "flash_bwd_f32",
+                 "paged_attention_f32"):
         log = _kernels.build_log(name)
         for line in log.splitlines():
             if ("registers" in line or "spill" in line or "entry function" in line
@@ -2288,17 +2295,19 @@ def phase_rl_platform(ctx):
 
 # --------------------------------------------------------------------------- #
 # c5: K4 at any GQA group and at D256; bf16 attention at D256 on the tensor
-# cores; fp32 through the CUDA-core kernels of attention_simt.cu; llama_1b's
-# width at 2 layers served and trained in those shapes and dtypes
+# cores; fp32 through the 3xTF32 tensor-core forward and backward and the
+# fp32 decode; llama_1b's width at 2 layers served and trained in those
+# shapes and dtypes
 # --------------------------------------------------------------------------- #
-SIMT_SRC = "ray_tpu_torch/csrc/attention_simt.cu"
+F32_FWD_SRC = "ray_tpu_torch/csrc/flash_fwd_f32.cu"
 F32_BWD_SRC = "ray_tpu_torch/csrc/flash_bwd_f32.cu"
+F32_PAGED_SRC = "ray_tpu_torch/csrc/paged_attention_f32.cu"
 # fp32 kernels against their plain versions (fp32 math, full fp32 products):
 # the JAX tests' fp32 flash tolerance (tests/test_ops_attention.py),
 # elementwise |kernel - plain| <= F32_TOL + F32_TOL |plain|
 F32_TOL = 2e-5
-# fp32 FLOP/s on the CUDA cores (NVIDIA's data sheets, dense): the SIMT
-# kernels' bound is their operations at this rate
+# fp32 FLOP/s on the CUDA cores (NVIDIA's data sheets, dense): the bound of
+# the fp32 decode (FFMA), and beside the 3xTF32 kernels' own
 FP32_FLOPS = {"H100 SXM": 67e12, "H100 PCIe": 51e12, "H200 SXM": 67e12}
 # dense TF32 FLOP/s on the tensor cores (the same sheets): the 3xTF32
 # kernels do three TF32 products for each fp32-accurate one, so their bound
@@ -2309,7 +2318,7 @@ TF32_FLOPS = {"H100 SXM": 494.7e12, "H100 PCIe": 378e12, "H200 SXM": 494.7e12}
 C5_K4 = ((16, 16, 128), (16, 8, 128), (16, 2, 128), (16, 1, 128), (32, 1, 128), (16, 4, 256))
 C5_LAYERS = 2
 # the c5 engines' prefill (8 prompts in the 128 bucket) and the c5 train
-# step's attention (llama_1b's heads, B2 S512): where the SIMT kernels are
+# step's attention (llama_1b's heads, B2 S512): where the fp32 kernels are
 # timed
 C5_PREFILL_ATTN = (8, 128, 128, 16, 4, 128, True)
 C5_PREFILL_D256 = (8, 128, 128, 8, 2, 256, True)
@@ -2318,11 +2327,11 @@ C5_TRAIN_ATTN = (2, 512, 512, 16, 4, 128, True)
 # training shape, B8 S2048 causal: the same 137 GFLOP of causal products as
 # llama_1b's K1' shape, where the D256 forward is also timed
 D256_TRAIN_ATTN = (8, 2048, 2048, 8, 2, 256, True)
-# where the fp32 backward (flash_bwd_f32.cu) is timed besides C5_TRAIN_ATTN:
-# llama_1b's training shape in fp32, and B2 S512 at D64 (16 q heads over 4)
-# and at D256 (the c5 D256 config's 8 over 2); keys suffixed so on the
-# kernels line
-F32_BWD_TIMED = {"_s2048": TRAIN_ATTN, "_d64": (2, 512, 512, 16, 4, 64, True),
+# where the fp32 forward with lse and backward (flash_fwd_f32.cu,
+# flash_bwd_f32.cu) are timed besides C5_TRAIN_ATTN: llama_1b's training
+# shape in fp32, and B2 S512 at D64 (16 q heads over 4) and at D256 (the c5
+# D256 config's 8 over 2); keys suffixed so on the kernels line
+F32_TIMED = {"_s2048": TRAIN_ATTN, "_d64": (2, 512, 512, 16, 4, 64, True),
                  "_d256": (2, 512, 512, 8, 2, 256, True)}
 # the D256 tensor-core forward and backward against their plain versions:
 # the two timed shapes, then groups 4, 1 and 8 with ragged, non-causal and
@@ -2369,7 +2378,7 @@ def phase_c5(ctx):
     ctx["c5"] = {"k4_widened": _c5_paged_widened(ctx)}
     _c5_d256_forward(ctx)
     _c5_d256_backward(ctx)
-    _c5_simt_kernels(ctx)
+    _c5_f32_kernels(ctx)
     _c5_serve(ctx)
     _c5_train(ctx)
     _c5_train_d256(ctx)
@@ -2606,18 +2615,19 @@ def _c5_d256_backward(ctx):
         torch.cuda.empty_cache()
 
 
-def _c5_simt_kernels(ctx):
+def _c5_f32_kernels(ctx):
     """Every fp32 kernel against its plain version at D64/128/256 (F32_TOL):
-    the SIMT forward and decode, and the 3xTF32 dQ and dK/dV
-    (flash_bwd_f32.cu), each of these launched twice, bitwise equal; then
-    each timed at the c5 paths' shapes, beside its plain version, SDPA where
-    one call computes the same function, and its bound."""
+    the 3xTF32 forward (K1, K1'; flash_fwd_f32.cu) and dQ and dK/dV
+    (flash_bwd_f32.cu), and the decode (K4; paged_attention_f32.cu), each
+    launched twice, bitwise equal; then each timed at the c5 paths' shapes,
+    beside its plain version, SDPA where one call computes the same
+    function, and its bound."""
     import torch
 
     from ray_tpu_torch.models import paged_decode as pd
     from ray_tpu_torch.ops import attention as ta
 
-    errs = {k: [] for k in ("k1s", "k1ls", "k2t", "k3t", "k4s")}
+    errs = {k: [] for k in ("k1t", "k1lt", "k2t", "k3t", "k4f")}
     cases = [(b, sq, skv, hq, hkv, d, causal) for d in (64, 128, 256)
              for b, sq, skv, hq, hkv, causal in ((2, 100, 300, 8, 2, True),
                                                  (2, 77, 50, 4, 1, False),
@@ -2630,16 +2640,19 @@ def _c5_simt_kernels(ctx):
         delta = ta._delta(out_l, dout, out_lo)
         dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
         dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
-        again = (ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale),
+        again = (ta.flash_attention(q, k, v, causal=causal),
+                 *ta.flash_attention_lse(q, k, v, causal)[:2],
+                 ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale),
                  *ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale))
         torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
-                f"c5 fp32 backward {shape}: two launches differ")
+        require(all(torch.equal(a, b) for a, b in zip((out, out_l, lse, dq, dk, dv), again)),
+                f"c5 fp32 kernels {shape}: two launches differ")
         ref, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
         ref_dq = ta.flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, scale)
         ref_dk, ref_dv = ta.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
-        checks = [("k1s", "flash_fwd_simt out", out, ref),
-                  ("k1ls", "flash_fwd_lse_simt out", out_l, ref),
+        checks = [("k1t", "flash_fwd_tf32x3 out", out, ref),
+                  ("k1lt", "flash_fwd_lse_tf32x3 out", out_l, ref),
+                  ("k1lt", "flash_fwd_lse_tf32x3 lse", lse, ref_lse),
                   ("k2t", "flash_bwd_dq_tf32x3 dq", dq, ref_dq),
                   ("k3t", "flash_bwd_dkv_tf32x3 dk", dk, ref_dk),
                   ("k3t", "flash_bwd_dkv_tf32x3 dv", dv, ref_dv)]
@@ -2649,27 +2662,35 @@ def _c5_simt_kernels(ctx):
             errs[key].append((got.float() - want.float()).abs().max().item())
             require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
                     f"c5 {what} fp32 {shape}: worst error / tolerance {ratio}")
-        require(_f32_ratio(lse, ref_lse) <= 1.0, f"c5 flash_fwd_lse lse fp32 {shape} disagrees")
         require(not out_lo.any(), "c5: fp32 out_lo is not zero")
-        print(f"c5 fp32 flash kernels {shape}: max_abs_err out (SIMT) {errs['k1s'][-1]:.3e}, "
-              f"dq {errs['k2t'][-1]:.3e}, dk/dv {max(errs['k3t'][-2:]):.3e} (3xTF32; tol "
-              f"atol = rtol = {F32_TOL}; worst error / tolerance "
-              f"{ {w: round(r, 3) for w, r in ratios.items()} }); dq, dk, dv bitwise "
+        print(f"c5 fp32 flash kernels {shape}: max_abs_err out {errs['k1t'][-1]:.3e}, out and "
+              f"lse (K1') {max(errs['k1lt'][-2:]):.3e}, dq {errs['k2t'][-1]:.3e}, dk/dv "
+              f"{max(errs['k3t'][-2:]):.3e} (3xTF32; tol atol = rtol = {F32_TOL}; worst error / "
+              f"tolerance { {w: round(r, 3) for w, r in ratios.items()} }); all bitwise "
               "repeatable", flush=True)
         del q, k, v, dout, out, out_l, lse, out_lo, delta, dq, dk, dv, again, ref, ref_lse, \
             ref_dq, ref_dk, ref_dv
-    for nh, nkv, D in ((8, 2, 64), (16, 4, 128), (16, 16, 128), (8, 2, 256)):
-        args = _paged_inputs(torch, 300 + D + nkv, 8, 1, 512, 65, 1, nh, nkv, D,
-                             dtype=torch.float32)
-        got, ref = pd.paged_attention(*args), pd._paged_attention_reference(*args, 1.0)
-        torch.cuda.synchronize()
-        ratio = _f32_ratio(got, ref)
-        errs["k4s"].append((got - ref).abs().max().item())
-        print(f"c5 paged_attention_simt fp32 nh{nh} n_kv{nkv} D{D}: max_abs_err "
-              f"{errs['k4s'][-1]:.3e}, worst error / tolerance {ratio:.3f}", flush=True)
-        require(ratio <= 1.0, f"c5 paged_attention_simt fp32 D{D} disagrees: {ratio}")
+    # the decode: groups 4, 1 and 8 and D64/128/256 at 8 slots of 1..512 rows
+    # (one retired) and at 4 slots of 1537..2048
+    for nh, nkv, D in ((8, 2, 64), (16, 4, 128), (16, 16, 128), (16, 2, 128), (8, 2, 256)):
+        for B, lo, hi, total, trash, seed in ((8, 1, 512, 65, 1, 300), (4, 1537, 2048, 129, 0, 310)):
+            args = _paged_inputs(torch, seed + D + nkv, B, lo, hi, total, trash, nh, nkv, D,
+                                 dtype=torch.float32)
+            got, again = pd.paged_attention(*args), pd.paged_attention(*args)
+            ref = pd._paged_attention_reference(*args, 1.0)
+            torch.cuda.synchronize()
+            ratio = _f32_ratio(got, ref)
+            errs["k4f"].append((got - ref).abs().max().item())
+            print(f"c5 paged_attention_f32 nh{nh} n_kv{nkv} D{D}, {B} slots of {lo}..{hi} rows: "
+                  f"max_abs_err {errs['k4f'][-1]:.3e}, worst error / tolerance {ratio:.3f}, "
+                  "bitwise repeatable", flush=True)
+            require(ratio <= 1.0, f"c5 paged_attention_f32 nh{nh} n_kv{nkv} D{D} B{B} "
+                    f"disagrees: {ratio}")
+            require(torch.equal(got, again), f"c5 paged_attention_f32 nh{nh} n_kv{nkv} D{D} "
+                    f"B{B}: two launches differ")
+            del args, got, again, ref
     torch.cuda.empty_cache()
-    _c5_time_simt(ctx, errs)
+    _c5_time_f32(ctx, errs)
 
 
 def _sdpa_kernels(torch, F, q, k, v, dout, causal):
@@ -2686,7 +2707,7 @@ def _sdpa_kernels(torch, F, q, k, v, dout, causal):
                    if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0})
 
 
-def _c5_time_simt(ctx, errs):
+def _c5_time_f32(ctx, errs):
     import torch
     import torch.nn.functional as F
 
@@ -2738,8 +2759,8 @@ def _c5_time_simt(ctx, errs):
                                   iters=5, warmup=1)
         fns = {"fwd": (lambda q, k, v, *_: ta.flash_attention(q, k, v, causal),
                        lambda q, k, v, *_: ta.reference_attention(q, k, v, causal)),
-               "fwd_lse": (lambda q, k, v, *_: ta.flash_attention_lse(q, k, v, causal),
-                           lambda q, k, v, *_: ta.reference_attention_lse(q, k, v, causal)),
+               "fwd_lse": (lambda q, k, v, *_: ta.flash_attention_lse(q, k, v, causal)[:2],
+                           lambda q, k, v, *_: ta.reference_attention_lse(q, k, v, causal)[:2]),
                "dq": (lambda *a: ta.flash_bwd_dq(*a, causal, scale),
                       lambda *a: ta.flash_bwd_dq_reference(*a, causal, scale)),
                "dkv": (lambda *a: ta.flash_bwd_dkv(*a, causal, scale),
@@ -2747,26 +2768,24 @@ def _c5_time_simt(ctx, errs):
         res = {}
         for name in names:
             fn, plain = fns[name]
-            if name in ("dq", "dkv"):  # held to F32_TOL at every timed shape too
-                got, want = fn(*sets[0]), plain(*sets[0])
-                for g_, w_ in zip(*((got, want) if name == "dkv" else ((got,), (want,)))):
-                    ratio = _f32_ratio(g_, w_)
-                    require(bool(torch.isfinite(g_).all()) and ratio <= 1.0,
-                            f"c5 {name} fp32 {shape}: worst error / tolerance {ratio}")
-                    print(f"c5 {name} fp32 {shape}: worst error / tolerance {ratio:.3f}",
-                          flush=True)
-                del got, want
+            # held to F32_TOL at every timed shape too
+            got, want = fn(*sets[0]), plain(*sets[0])
+            for g_, w_ in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+                ratio = _f32_ratio(g_, w_)
+                require(bool(torch.isfinite(g_).all()) and ratio <= 1.0,
+                        f"c5 {name} fp32 {shape}: worst error / tolerance {ratio}")
+                print(f"c5 {name} fp32 {shape}: worst error / tolerance {ratio:.3f}", flush=True)
+            del got, want
             ms = cuda_ms(torch, fn, sets, iters=5, warmup=1)
             plain_ms = cuda_ms(torch, plain, sets, iters=3, warmup=1)
             lib = libs["fwd" if name.startswith("fwd") else "bwd"]
             flops, nbytes = work(shape)[name]
             cores = bound_ms(flops, nbytes, f32_peaks)
-            bms, by = cores if name.startswith("fwd") else bound_ms(flops, nbytes, x3_peaks)
+            bms, by = bound_ms(flops, nbytes, x3_peaks)
             res[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bms,
                          "bound_by": by, "bound_ms_cuda_cores": cores[0],
                          "bound_by_cuda_cores": cores[1], "shape": list(shape)}
-            route = "SIMT" if name.startswith("fwd") else "3xTF32"
-            print(f"c5 {name} {route} float32 {shape}: {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            print(f"c5 {name} 3xTF32 float32 {shape}: {ms:.5f} ms, plain {plain_ms:.5f} ms, "
                   f"SDPA {lib:.5f} ms ({'forward' if name.startswith('fwd') else 'backward, dq dk dv together'}), "
                   f"bound {bms:.5f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
                   f"CUDA-core bound {cores[0]:.5f} ms on {ctx['card']}", flush=True)
@@ -2776,8 +2795,9 @@ def _c5_time_simt(ctx, errs):
 
     prefill = timed(C5_PREFILL_ATTN, 400, ("fwd",))
     train = timed(C5_TRAIN_ATTN, 410, ("fwd_lse", "dq", "dkv"))
-    meta = {"k1s": ("flash_fwd_simt", SIMT_SRC, "ray_tpu/ops/attention.py:71", prefill["fwd"]),
-            "k1ls": ("flash_fwd_lse_simt", SIMT_SRC, "ray_tpu/ops/attention.py:155",
+    meta = {"k1t": ("flash_fwd_tf32x3", F32_FWD_SRC, "ray_tpu/ops/attention.py:71",
+                    prefill["fwd"]),
+            "k1lt": ("flash_fwd_lse_tf32x3", F32_FWD_SRC, "ray_tpu/ops/attention.py:155",
                      train["fwd_lse"]),
             "k2t": ("flash_bwd_dq_tf32x3", F32_BWD_SRC, "ray_tpu/ops/attention.py:182",
                     train["dq"]),
@@ -2786,38 +2806,67 @@ def _c5_time_simt(ctx, errs):
     for key, (name, src, replaces, numbers) in meta.items():
         ctx[key] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                     "max_abs_err": max(errs[key]), **numbers}
-        if key in ("k1s", "k1ls"):  # their bound is the CUDA cores'
-            del ctx[key]["bound_ms_cuda_cores"], ctx[key]["bound_by_cuda_cores"]
-    for i, (suffix, shape) in enumerate(F32_BWD_TIMED.items()):
-        more = timed(shape, 440 + 2 * i, ("dq", "dkv"))
-        for key, name in (("k2t", "dq"), ("k3t", "dkv")):
+    for i, (suffix, shape) in enumerate(F32_TIMED.items()):
+        more = timed(shape, 440 + 2 * i, ("fwd_lse", "dq", "dkv"))
+        for key, name in (("k1lt", "fwd_lse"), ("k2t", "dq"), ("k3t", "dkv")):
             ctx[key].update({f"{k}{suffix}": v for k, v in more[name].items()})
         total = more["dq"]["ms"] + more["dkv"]["ms"]
-        print(f"c5 fp32 backward {shape}: flash_bwd_dq_tf32x3 + flash_bwd_dkv_tf32x3 "
-              f"{total:.5f} ms, SDPA backward {more['dq']['library_ms']:.5f} ms "
-              f"({total / more['dq']['library_ms']:.2f}x) on {ctx['card']}", flush=True)
-    for key, inst in (("k2t", "flash_bwd_dq_tf32x3_kernel<128, 32, 1>"),
-                      ("k3t", "flash_bwd_dkv_tf32x3_kernel<128, 32, 1, 1>")):
-        rep = ctx["ptxas"]["flash_bwd_f32"].get(inst, {})
+        print(f"c5 fp32 {shape}: flash_fwd_lse_tf32x3 {more['fwd_lse']['ms']:.5f} ms, SDPA "
+              f"forward {more['fwd_lse']['library_ms']:.5f} ms "
+              f"({more['fwd_lse']['ms'] / more['fwd_lse']['library_ms']:.2f}x); "
+              f"flash_bwd_dq_tf32x3 + flash_bwd_dkv_tf32x3 {total:.5f} ms, SDPA backward "
+              f"{more['dq']['library_ms']:.5f} ms ({total / more['dq']['library_ms']:.2f}x) on "
+              f"{ctx['card']}", flush=True)
+    for key, src, inst in (("k1t", "flash_fwd_f32", "flash_fwd_tf32x3_kernel<128, 64, 1, 1>"),
+                           ("k1lt", "flash_fwd_f32", "flash_fwd_tf32x3_kernel<128, 64, 1, 1>"),
+                           ("k2t", "flash_bwd_f32", "flash_bwd_dq_tf32x3_kernel<128, 32, 1>"),
+                           ("k3t", "flash_bwd_f32", "flash_bwd_dkv_tf32x3_kernel<128, 32, 1, 1>")):
+        rep = ctx["ptxas"][src].get(inst, {})
         ctx[key].update({k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
         print(f"c5 {inst} (ptxas): {rep}", flush=True)
-    # paged_attention_simt at the c5 fp32 engine's decode: 8 slots of
-    # llama_1b's heads, fp32, 1..512 rows on 64-row pages
-    sets = [_paged_inputs(torch, 430 + i, 8, 1, 512, 65, 1, 16, 4, 128, max_pages=8,
-                          dtype=torch.float32) for i in range(2)]
-    ms = cuda_ms(torch, pd.paged_attention, sets)
-    plain_ms = cuda_ms(torch, lambda *a: pd._paged_attention_reference(*a, 1.0), sets, iters=5)
-    rows = sum(int(a[4].sum()) for a in sets) / len(sets)
-    bms, by = bound_ms(4.0 * 16 * 128 * rows, 4.0 * (2 * 8 * 16 * 128 + 2 * rows * 4 * 128)
-                       + 4.0 * 8 * 9, f32_peaks)
-    ctx["k4s"] = {"name": "paged_attention_simt", "route": "cuda", "source": SIMT_SRC,
-                  "replaces": "ray_tpu/models/paged_decode.py:93", "max_abs_err": max(errs["k4s"]),
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                  "library_ms": None, "shape": [8, 16, 4, 128, 64, 8, 1, 512]}
-    print(f"c5 paged_attention_simt fp32 8 slots: {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-          f"{bms:.5f} ms ({by}) on {ctx['card']}", flush=True)
-    del sets
-    torch.cuda.empty_cache()
+    # paged_attention_f32 at the c5 fp32 engine's decode (8 slots of
+    # llama_1b's heads, fp32, 1..512 rows on 64-row pages of an 8-page
+    # table) and at 4 slots of 1537..2048 rows on a 32-page table: event-timed
+    # (ms), graph-timed (device_ms: the device alone) and, at the engine's
+    # shape, host_us (host clock over 200 wrapper calls, unsynchronised)
+    entry = {"name": "paged_attention_f32", "route": "cuda", "source": F32_PAGED_SRC,
+             "replaces": "ray_tpu/models/paged_decode.py:93", "max_abs_err": max(errs["k4f"]),
+             "library_ms": None}
+    for suffix, (B, lo, hi, total, max_pages, seed) in {"": (8, 1, 512, 65, 8, 430),
+                                                        "_long": (4, 1537, 2048, 129, 32, 470)
+                                                        }.items():
+        sets = [_paged_inputs(torch, seed + i, B, lo, hi, total, 1 if not suffix else 0, 16, 4,
+                              128, max_pages=max_pages, dtype=torch.float32) for i in range(2)]
+        ms = cuda_ms(torch, pd.paged_attention, sets)
+        dev_ms = graph_ms(torch, pd.paged_attention, sets)
+        plain_ms = cuda_ms(torch, lambda *a: pd._paged_attention_reference(*a, 1.0), sets,
+                           iters=5)
+        rows = sum(int(a[4].sum()) for a in sets) / len(sets)  # K/V rows this data reads
+        nbytes = 4.0 * (2 * B * 16 * 128 + 2 * rows * 4 * 128) + 4.0 * B * (max_pages + 1)
+        bms, by = bound_ms(4.0 * 16 * 128 * rows, nbytes, f32_peaks)
+        splits = pd.split_count(B, 4, max_pages, 64, pd._sm_count(0), chunk=pd.F32_CHUNK,
+                                per_sm=pd.F32_BLOCKS_PER_SM)
+        entry.update({f"ms{suffix}": ms, f"device_ms{suffix}": dev_ms,
+                      f"plain_ms{suffix}": plain_ms, f"bound_ms{suffix}": bms,
+                      f"bound_by{suffix}": by, f"splits{suffix}": splits,
+                      f"shape{suffix}": [B, 16, 4, 128, 64, max_pages, lo, hi]})
+        line = (f"c5 paged_attention_f32 {B} slots of {lo}..{hi} rows, {splits} split(s) a "
+                f"slot: {ms:.5f} ms, device (graph) {dev_ms:.5f} ms, plain {plain_ms:.5f} ms")
+        if not suffix:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(200):
+                pd.paged_attention(*sets[i % len(sets)])
+            entry["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            line += f", host {entry['host_us']:.2f} us a call"
+        print(f"{line}, bound {bms:.5f} ms ({by}: {nbytes / 1e6:.3f} MB) on {ctx['card']}",
+              flush=True)
+        del sets
+        torch.cuda.empty_cache()
+    rep = ctx["ptxas"]["paged_attention_f32"].get("paged_attention_f32_split_kernel<128>", {})
+    entry.update({k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
+    ctx["k4f"] = entry
 
 
 def _c5_configs():
@@ -2840,7 +2889,8 @@ def _c5_serve(ctx):
     """LLMEngine answers 8 greedy requests for each _c5_configs entry: every
     prefill program launches the forward kernel and every decode tick the
     decode kernel once a layer (the tensor-core kernels in bf16, D256 too,
-    the SIMT forward and decode in fp32), no call runs a plain version, and
+    the 3xTF32 forward and the fp32 decode in fp32), no call runs a plain
+    version, and
     the fp32 tokens equal those of the same engine through the plain
     versions (in bf16 the number of requests whose tokens are equal is
     reported)."""
@@ -2853,7 +2903,7 @@ def _c5_serve(ctx):
     from ray_tpu_torch.serve.llm import LLMEngine
 
     rng = torch.Generator().manual_seed(11)
-    bf16_counts, simt_counts = {}, {}
+    bf16_counts, f32_counts = {}, {}
     for name, cfg in _c5_configs().items():
         params = llama_init(cfg, seed=0, device="cuda")
         prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
@@ -2879,8 +2929,8 @@ def _c5_serve(ctx):
 
         tokens, counts, programs, ticks = serve()
         fp32 = cfg.dtype == torch.float32
-        fwd = "flash_fwd_simt" if fp32 else "flash_fwd"
-        dec = "paged_attention_simt" if fp32 else "paged_attention"
+        fwd = "flash_fwd_tf32x3" if fp32 else "flash_fwd"
+        dec = "paged_attention_f32" if fp32 else "paged_attention"
         want = {fwd: C5_LAYERS * programs, dec: C5_LAYERS * ticks}
         require_no_plain(counts, f"c5 serve {name}")
         require(counts == want, f"c5 serve {name} launched {counts}, expected {want}")
@@ -2906,18 +2956,18 @@ def _c5_serve(ctx):
                 "plain path")
         print(line, flush=True)
         for n, c in counts.items():
-            target = simt_counts if n.endswith("_simt") else bf16_counts
+            target = f32_counts if n.endswith(("_tf32x3", "_f32")) else bf16_counts
             target[n] = target.get(n, 0) + c
         ctx["c5"][f"serve_{name}"] = {"prefill_programs": programs, "decode_ticks": ticks,
                                       "launches": counts, "tokens_equal_plain": same}
         del params
         torch.cuda.empty_cache()
-    ctx["c5_serve_launches"], ctx["c5_bf16_launches"] = simt_counts, bf16_counts
+    ctx["c5_serve_launches"], ctx["c5_bf16_launches"] = f32_counts, bf16_counts
 
 
 def _c5_train(ctx):
     """fp32 training of llama_1b's width at C5_LAYERS layers (save_attn, B2
-    S512) through the SIMT forward with lse and the 3xTF32 dQ and dK/dV,
+    S512) through the 3xTF32 forward with lse, dQ and dK/dV,
     held against the same work through the plain versions
     (flash_attention_lse and flash_bwd patched to their references), each
     from the seed-0 state: the first step's gradients, leaf by leaf, within
@@ -2947,7 +2997,7 @@ def _c5_train(ctx):
     targets = torch.roll(tokens, -1, dims=1)
     step = make_train_step(cfg, opt)
     factory = make_train_state_factory(cfg, opt)
-    want = {"flash_fwd_lse_simt": C5_LAYERS, "flash_bwd_dq_tf32x3": C5_LAYERS,
+    want = {"flash_fwd_lse_tf32x3": C5_LAYERS, "flash_bwd_dq_tf32x3": C5_LAYERS,
             "flash_bwd_dkv_tf32x3": C5_LAYERS}
 
     def run(plain: bool):
@@ -4413,11 +4463,11 @@ def main() -> int:
     # launches: each kernel's count from the run of the path it lies on
     runs = {"k1": ctx["launches"], "k1l": ctx["train_launches"], "k2": ctx["train_launches"],
             "k3": ctx["train_launches"], "k4": ctx["launches"],
-            # the fp32 kernels (the CUDA-core forward and decode, the 3xTF32
-            # backward), from the c5 phase's fp32 engine and its fp32 train steps
-            "k1s": ctx["c5_serve_launches"], "k1ls": ctx["c5_train_launches"],
+            # the fp32 kernels (the 3xTF32 forward and backward, the fp32
+            # decode), from the c5 phase's fp32 engine and its fp32 train steps
+            "k1t": ctx["c5_serve_launches"], "k1lt": ctx["c5_train_launches"],
             "k2t": ctx["c5_train_launches"], "k3t": ctx["c5_train_launches"],
-            "k4s": ctx["c5_serve_launches"]}
+            "k4f": ctx["c5_serve_launches"]}
     kernels = []
     for key, run in runs.items():
         entry = dict(ctx[key], launches=run.get(ctx[key]["name"], 0))

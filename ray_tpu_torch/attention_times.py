@@ -16,16 +16,19 @@ D128, causal), ViT-L/16's (B32, S196, 16 heads over 16, D64, not causal)
 and llama_1b's width as 8 q heads of 256 over 2 at the training shape (B8
 S2048, causal) and at the prefill of 8 prompts of 128 tokens (B8 S128),
 where K1 (``flash_attention``) is timed too: a checkout that routes bf16
-at D256 to the CUDA cores times those kernels there. In fp32, K2 and K3
-are timed at the c5 train step's attention (B2 S512, 16 q heads over 4,
-D128, causal) and at llama_1b's training shape (B8 S2048): a checkout
-older than the 3xTF32 backward runs them on the CUDA cores. The c5 fp32
-train step (llama_1b's width at 2 layers, fp32, ``save_attn``, B2 S512)
-is timed too: ms a step over 5 steps after 2 warm-up steps. A shape a
-checkout's kernels refuse is reported as null. K4
-(``models.paged_decode.paged_attention``, in every checkout) is timed at
-the serving table: 64 slots of 1..512 rows on 64-row pages, a 32-page
-table, 16 q heads over 4 of D128, bf16. Each line of output is one
+at D256 to the CUDA cores times those kernels there. In fp32, K1, K1', K2
+and K3 are timed at the c5 engines' prefill (B8 S128, 16 q heads over 4,
+D128, causal), the c5 train step's attention (B2 S512) and llama_1b's
+training shape (B8 S2048): a checkout older than the 3xTF32 forward
+(backward) runs it on the CUDA cores. The c5 fp32 train step (llama_1b's
+width at 2 layers, fp32, ``save_attn``, B2 S512) is timed too: ms a step
+over 5 steps after 2 warm-up steps. A shape a checkout's kernels refuse is
+reported as null. K4 (``models.paged_decode.paged_attention``, in every
+checkout) is timed at the serving table: 64 slots of 1..512 rows on 64-row
+pages, a 32-page table, 16 q heads over 4 of D128, bf16; and in fp32 at the
+c5 fp32 engine's decode (8 slots of 1..512 rows, an 8-page table) and at 4
+slots of 1537..2048 rows (a 32-page table), where a checkout older than
+the fp32 split decode runs its CUDA-core decode. Each line of output is one
 checkout's JSON: ms a call (mean of 20 calls between CUDA events, inputs
 cycling over copies larger than the L2), per kernel and shape; for K4 also
 ``device_ms`` (the same 20 calls captured in a CUDA graph and replayed: the
@@ -49,9 +52,15 @@ SHAPES = {"llama_1b": (8, 2048, 2048, 16, 4, 128, True),
           "d256": (8, 2048, 2048, 8, 2, 256, True),
           "d256_prefill": (8, 128, 128, 8, 2, 256, True)}
 WITH_K1 = ("d256", "d256_prefill")  # shapes where the serving forward is timed as well
-# fp32 shapes, where K2 and K3 alone are timed
-F32_SHAPES = {"c5_fp32": (2, 512, 512, 16, 4, 128, True),
+# fp32 shapes, where K1, K1', K2 and K3 are timed
+F32_SHAPES = {"c5_prefill_fp32": (8, 128, 128, 16, 4, 128, True),
+              "c5_fp32": (2, 512, 512, 16, 4, 128, True),
               "llama_1b_fp32": (8, 2048, 2048, 16, 4, 128, True)}
+# K4's tables: (slots, fewest rows, most rows, pool pages, retired slots,
+# table width in pages, dtype name)
+PAGED = {"paged_attention": (64, 1, 512, 513, 4, 32, "bfloat16"),
+         "paged_attention_f32": (8, 1, 512, 65, 1, 8, "float32"),
+         "paged_attention_f32_long": (4, 1537, 2048, 129, 0, 32, "float32")}
 ROUNDS = 5  # rounds of 200 K4 wrapper calls timed on the host clock
 
 
@@ -86,11 +95,11 @@ def _graph_ms(torch, fn, sets, iters=20, replays=5):
     return start.elapsed_time(end) / (iters * replays)
 
 
-def _paged_set(torch, seed, B=64, lo=1, hi=512, total_pages=513, trash_slots=4, nh=16, nkv=4,
-               D=128, ps=64, max_pages=32):
-    """K4's inputs at the serving table: B slots of lo..hi rows on random
-    pages (page 0 the trash page; the first ``trash_slots`` slots hold one
-    row and an all-zero table row, as inactive slots do); q pre-scaled."""
+def _paged_set(torch, seed, B=64, lo=1, hi=512, total_pages=513, trash_slots=4, max_pages=32,
+               dtype="bfloat16", nh=16, nkv=4, D=128, ps=64):
+    """K4's inputs: B slots of lo..hi rows on random pages (page 0 the trash
+    page; the first ``trash_slots`` slots hold one row and an all-zero table
+    row, as inactive slots do); q pre-scaled."""
     g = torch.Generator().manual_seed(seed)
     slot_pages = (total_pages - 1) // B
     lengths = torch.randint(lo, hi + 1, (B,), generator=g, dtype=torch.int32)
@@ -101,16 +110,17 @@ def _paged_set(torch, seed, B=64, lo=1, hi=512, total_pages=513, trash_slots=4, 
         n = -(-int(lengths[s]) // ps)
         table[s, :n] = perm[s * slot_pages: s * slot_pages + n]
     gd = torch.Generator(device="cuda").manual_seed(seed)
-    kp, vp = (torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda")
-              .to(torch.bfloat16) for _ in range(2))
-    q = (torch.randn((B, nh, D), generator=gd, device="cuda") * D ** -0.5).to(torch.bfloat16)
+    dt = getattr(torch, dtype)
+    kp, vp = (torch.randn((nkv, total_pages, ps, D), generator=gd, device="cuda").to(dt)
+              for _ in range(2))
+    q = (torch.randn((B, nh, D), generator=gd, device="cuda") * D ** -0.5).to(dt)
     return q, kp, vp, table.cuda(), lengths.cuda()
 
 
-def time_paged(torch, pd) -> dict:
+def time_paged(torch, pd, table) -> dict:
     """K4's event-timed ms, graph-timed device_ms and host_us a wrapper call
-    at the serving table."""
-    sets = [_paged_set(torch, 40 + i) for i in range(4)]
+    at ``table`` (a PAGED entry)."""
+    sets = [_paged_set(torch, 40 + i, *table) for i in range(4)]
     result = {"ms": _ms(torch, pd.paged_attention, sets),
               "device_ms": _graph_ms(torch, pd.paged_attention, sets), "host_us": []}
     for _ in range(ROUNDS):
@@ -183,7 +193,8 @@ def _time_bwd(torch, ta, sets, causal, scale) -> dict:
 
 def time_checkout(root: str, paged_only: bool = False) -> dict:
     """Times of K1', K2, K3 and K4 (only K4 with ``paged_only``), of K1
-    at D256, of K2 and K3 in fp32 and of the c5 fp32 train step, from the
+    at D256, of K1, K1', K2, K3 and K4 in fp32 and of the c5 fp32 train
+    step, from the
     checkout at ``root`` (run in a fresh process: it imports that
     checkout's package), with the launch counts of the calls (which
     kernels ran)."""
@@ -206,14 +217,21 @@ def time_checkout(root: str, paged_only: bool = False) -> dict:
         del sets
         torch.cuda.empty_cache()
     for name, shape in ({} if paged_only else F32_SHAPES).items():
+        causal = shape[-1]
         sets = _inputs(torch, ta, shape, torch.float32)
-        result[name] = _time_bwd(torch, ta, sets, shape[-1], shape[5] ** -0.5)
+        times = {"flash_fwd": _ms(torch, lambda q, k, v, *_: ta.flash_attention(
+                     q, k, v, causal), sets),
+                 "flash_fwd_lse": _ms(torch, lambda q, k, v, *_: ta.flash_attention_lse(
+                     q, k, v, causal), sets)}
+        result[name] = {**times, **_time_bwd(torch, ta, sets, causal, shape[5] ** -0.5)}
         del sets
         torch.cuda.empty_cache()
     if not paged_only:
         result["c5_train_fp32_ms"] = time_c5_train(torch)
         torch.cuda.empty_cache()
-    result["paged_attention"] = time_paged(torch, pd)
+    for name, table in PAGED.items():
+        result[name] = time_paged(torch, pd, table)
+        torch.cuda.empty_cache()
     from ray_tpu_torch import _kernels
 
     result["launches"] = dict(_kernels.launch_counts)

@@ -10,8 +10,9 @@ Decode attention runs the hand-written CUDA kernels ``csrc/paged_attention.cu``
 through ``paged_attention``: they read exactly the pages a slot owns, in place
 in the pool, each slot's sequence split over several blocks whose partial
 softmaxes a second kernel merges (bf16, head dim 128 or 256, any GQA group);
-fp32 goes to the CUDA-core decode kernel of ``csrc/attention_simt.cu``
-(counted as ``paged_attention_simt``). On a CPU tensor the wrapper runs
+fp32 goes to the same plan's fp32 kernels of ``csrc/paged_attention_f32.cu``
+(head dim 64, 128 or 256, any page size; counted as
+``paged_attention_f32``). On a CPU tensor the wrapper runs
 ``_paged_attention_reference``, the gather-based plain version. On the card,
 ``_paged_attention`` sends a layer of a head dim the kernels do not take in
 its dtype (``kernel_tiles``: 128 and 256 in bf16, 64, 128 and 256 in fp32)
@@ -42,12 +43,13 @@ from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 KERNEL = "paged_attention"
-SIMT = "paged_attention_simt"
+F32 = "paged_attention_f32"
 PLAIN = "paged_attention_plain"
-# What the kernels take, at any GQA group: the tensor-core kernel bf16 at
-# these head dims, the CUDA-core kernel fp32 at these and 64. The dispatch
-# rule (kernel_tiles) sends every other head dim to the plain version.
-HEAD_DIMS, SIMT_HEAD_DIMS = (128, 256), (64, 128, 256)
+# What the kernels take, at any GQA group: the bf16 kernels (tensor cores)
+# at these head dims, the fp32 kernels (CUDA cores) at these and 64. The
+# dispatch rule (kernel_tiles) sends every other head dim to the plain
+# version.
+HEAD_DIMS, F32_HEAD_DIMS = (128, 256), (64, 128, 256)
 
 
 class PagedKVCache(NamedTuple):
@@ -90,35 +92,40 @@ def _paged_attention_reference(q, k_pool, v_pool, table, lengths, scale):
     return out.reshape(b, nh, d).to(q.dtype)
 
 
-# A block of the split kernel loads CHUNK rows of a slot at once; the
-# library's ``paged_attention_chunk_rows`` is checked against it when it loads.
-# A slot is split only when its (slot, kv head) blocks alone would leave SMs
-# idle: every split beyond one costs a merge launch.
-CHUNK = 128
+# A block of the bf16 split kernel loads CHUNK rows of a slot at once, one of
+# the fp32 kernel F32_CHUNK; each library's ``*_chunk_rows`` is checked
+# against it when it loads. A slot is split only when its (slot, kv head)
+# blocks alone would leave SMs idle: every split beyond one costs a merge
+# launch. The fp32 kernel's blocks are smaller (74 KB of shared memory at
+# D128, three an SM), so its grid aims at F32_BLOCKS_PER_SM blocks an SM.
+CHUNK, F32_CHUNK = 128, 64
+F32_BLOCKS_PER_SM = 2
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-_SIMT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # q heads a block of the split kernel serves; a larger group goes in passes
 PASS_ROWS = 8
 
 
-def split_count(b: int, nkv: int, max_pages: int, page_size: int, sms: int) -> int:
+def split_count(b: int, nkv: int, max_pages: int, page_size: int, sms: int,
+                chunk: int = CHUNK, per_sm: int = 1) -> int:
     """Blocks per (slot, kv head) of the split kernel: enough for the grid to
-    give each of ``sms`` SMs one block, never more than the table's CHUNK-row
-    chunks. Block z of a slot takes chunks z, z + splits, ..."""
-    chunks = -(-max_pages * page_size // CHUNK)
-    want = -(-sms // max(1, b * nkv))
+    give each of ``sms`` SMs ``per_sm`` blocks, never more than the table's
+    ``chunk``-row chunks (CHUNK and 1 for bf16, F32_CHUNK and
+    F32_BLOCKS_PER_SM for fp32). Block z of a slot takes chunks z,
+    z + splits, ..."""
+    chunks = -(-max_pages * page_size // chunk)
+    want = -(-sms * per_sm // max(1, b * nkv))
     return max(1, min(chunks, want))
 
 
 def check_layer(head_dim: int, num_heads: int, num_kv_heads: int, dtype) -> None:
     """Raise unless a kernel takes a layer of this shape and dtype: any
     group (num_heads % num_kv_heads == 0); bf16 at head_dim 128 or 256 (the
-    tensor-core kernel), fp32 at 64, 128 or 256 (the CUDA-core kernel)."""
+    tensor-core kernels), fp32 at 64, 128 or 256 (the fp32 kernels)."""
     if num_kv_heads <= 0 or num_heads % num_kv_heads:
         raise ValueError(f"paged_attention takes nh % n_kv == 0; "
                          f"got nh={num_heads}, n_kv={num_kv_heads}")
-    dims = {torch.bfloat16: HEAD_DIMS, torch.float32: SIMT_HEAD_DIMS}.get(dtype)
+    dims = {torch.bfloat16: HEAD_DIMS, torch.float32: F32_HEAD_DIMS}.get(dtype)
     if dims is None:
         raise ValueError(f"paged_attention kernels take bfloat16 or float32, got {dtype}")
     if head_dim not in dims:
@@ -140,24 +147,19 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The library and its C entry point, argument types set once."""
-    lib = _kernels.library(KERNEL)
-    rows, pass_rows = lib.paged_attention_chunk_rows(), lib.paged_attention_pass_rows()
-    if (rows, pass_rows) != (CHUNK, PASS_ROWS):
-        raise RuntimeError(f"{KERNEL} library loads {rows} rows a chunk for {pass_rows} q heads, "
-                           f"split_count {CHUNK} for {PASS_ROWS}")
-    fn = lib.paged_attention_bf16
+def _entry(fp32: bool):
+    """The library of the bf16 kernels (``paged_attention.cu``) or of the
+    fp32 ones (``paged_attention_f32.cu``) and its C entry point, argument
+    types set once; both take the same arguments."""
+    name, chunk = (F32, F32_CHUNK) if fp32 else (KERNEL, CHUNK)
+    lib = _kernels.library(name)
+    rows = getattr(lib, f"{name}_chunk_rows")()
+    pass_rows = getattr(lib, f"{name}_pass_rows")()
+    if (rows, pass_rows) != (chunk, PASS_ROWS):
+        raise RuntimeError(f"{name} library loads {rows} rows a chunk for {pass_rows} q heads, "
+                           f"split_count {chunk} for {PASS_ROWS}")
+    fn = getattr(lib, "paged_attention_f32" if fp32 else "paged_attention_bf16")
     fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
-@functools.lru_cache(maxsize=None)
-def _simt_entry():
-    lib = _kernels.library("attention_simt")
-    fn = lib.simt_paged_attention
-    fn.argtypes = _SIMT_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -165,9 +167,9 @@ def _simt_entry():
 def paged_attention(q, k_pool, v_pool, table, lengths):
     """Kernel wrapper. q: [B, nh, D], already scaled; pools: [n_kv, P_total,
     ps, D] (one layer); table: [B, max_pages] int32; lengths: [B] int32.
-    Launches the CUDA kernels for CUDA tensors (any nh % n_kv == 0; bf16 at
-    D 128 or 256 with a page size that is a multiple of 8: the split and
-    merge kernels; fp32 at D 64, 128 or 256: the CUDA-core kernel) and raises
+    Launches the CUDA kernels for CUDA tensors (any nh % n_kv == 0; the
+    split and merge kernels, bf16 at D 128 or 256 with a page size that is a
+    multiple of 8, fp32 at D 64, 128 or 256 with any page size) and raises
     on anything else; runs the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return _paged_attention_reference(q, k_pool, v_pool, table, lengths, 1.0)
@@ -175,8 +177,8 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     nkv, total_pages, ps, _ = k_pool.shape
     max_pages = table.shape[1]
     check_layer(d, nh, nkv, q.dtype)
-    simt = q.dtype == torch.float32
-    if not simt:
+    fp32 = q.dtype == torch.float32
+    if not fp32:
         check_page_size(ps)
     if v_pool.shape != k_pool.shape or k_pool.shape[3] != d:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not fit q")
@@ -191,36 +193,30 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned {dt} tensor on "
                              f"{dev}, got {t.dtype} on {t.device}")
     out = torch.empty_like(q)
-    if simt:
-        lib, fn = _simt_entry()
-        err = fn(_kernels.ptr(q), _kernels.ptr(k_pool), _kernels.ptr(v_pool),
-                 _kernels.ptr(table), _kernels.ptr(lengths), _kernels.ptr(out), b, nh, nkv, d,
-                 total_pages, ps, max_pages, 0, _kernels.stream_of(q))
-        _kernels.check(lib, err, SIMT)
-        _kernels.launch_counts[SIMT] += 1
-        return out
     passes = -(-(nh // nkv) // PASS_ROWS)
-    splits = split_count(b, nkv * passes, max_pages, ps, _sm_count(dev.index))
+    plan = dict(chunk=F32_CHUNK, per_sm=F32_BLOCKS_PER_SM) if fp32 else {}
+    splits = split_count(b, nkv * passes, max_pages, ps, _sm_count(dev.index), **plan)
     partials = (torch.empty(b * nh * splits * (d + 2), dtype=torch.float32, device=dev)
                 if splits > 1 else None)
-    lib, fn = _entry()
+    lib, fn = _entry(fp32)
     err = fn(_kernels.ptr(q), _kernels.ptr(k_pool), _kernels.ptr(v_pool), _kernels.ptr(table),
              _kernels.ptr(lengths), _kernels.ptr(out), b, nh, nkv, d, total_pages, ps,
              max_pages, None if partials is None else _kernels.ptr(partials), splits,
              _kernels.stream_of(q))
-    _kernels.check(lib, err, KERNEL)
-    _kernels.launch_counts[KERNEL] += 1
+    name = F32 if fp32 else KERNEL
+    _kernels.check(lib, err, name)
+    _kernels.launch_counts[name] += 1
     return out
 
 
 def kernel_tiles(head_dim: int, dtype=torch.bfloat16) -> bool:
     """The dispatch rule of ``_paged_attention`` on the card: whether a
-    decode kernel takes this head dim in this dtype (fp32: the CUDA-core
-    kernel's SIMT_HEAD_DIMS; any other dtype: the tensor-core kernel's
+    decode kernel takes this head dim in this dtype (fp32: the fp32
+    kernels' F32_HEAD_DIMS; any other dtype: the bf16 kernels'
     HEAD_DIMS), as C1's rule answers for the flash kernels. Group and page
     size are no part of the rule, nor is a dtype no kernel takes (fp16 is
     held to HEAD_DIMS): the wrapper raises on those."""
-    return head_dim in (SIMT_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS)
+    return head_dim in (F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS)
 
 
 def _paged_attention(q, k_pool, v_pool, table, lengths, scale, config):

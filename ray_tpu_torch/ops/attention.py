@@ -17,14 +17,14 @@ Port of ray_tpu/ops/attention.py.
 - ``flash_bwd`` wraps the two backward kernels (``csrc/flash_bwd.cu``): dQ
   (``flash_bwd_dq``) and dK/dV (``flash_bwd_dkv``), bf16, head_dim 64, 128
   or 256, any number of q heads per kv head.
-- The same wrappers send the fp32 forward at head dim 64, 128 or 256 to the
-  CUDA-core kernel of ``csrc/attention_simt.cu`` (full fp32 products, no
-  TF32), which counts under its own names with ``_simt`` appended
-  (``flash_fwd_simt``, ``flash_fwd_lse_simt``), and the fp32 backward at
-  those head dims to the tensor-core kernels of ``csrc/flash_bwd_f32.cu``
-  (3xTF32 products, fp32-accurate), counted as ``flash_bwd_dq_tf32x3`` and
-  ``flash_bwd_dkv_tf32x3``. ``simt_route`` decides, by kernel, dtype and
-  head dim. In fp32 ``out_lo`` is zeros. ``delta = rowsum(dO * O)`` is computed
+- The same wrappers send fp32 at head dim 64, 128 or 256 to the
+  tensor-core kernels of ``csrc/flash_fwd_f32.cu`` (the forward) and
+  ``csrc/flash_bwd_f32.cu`` (dQ and dK/dV), whose products are 3xTF32
+  (fp32-accurate); they count under their own names with ``_tf32x3``
+  appended (``flash_fwd_tf32x3``, ``flash_fwd_lse_tf32x3``,
+  ``flash_bwd_dq_tf32x3``, ``flash_bwd_dkv_tf32x3``). ``kernel_route``
+  names the kernel family a call goes to, by kernel, dtype and head dim.
+  In fp32 ``out_lo`` is zeros. ``delta = rowsum(dO * O)`` is computed
   here in fp32, outside the kernels, as the JAX package computes it, but
   from ``out + out_lo``: ``delta`` has to equal the sum over keys of
   ``p * dP`` that the backward's own ``p`` and ``dP`` carry, and the bf16
@@ -77,19 +77,18 @@ import torch
 from ray_tpu_torch import _kernels
 
 NEG_INF = -1e30
-FWD_LIB, BWD_LIB, SIMT_LIB = "flash_fwd", "flash_bwd", "attention_simt"
-F32_BWD_LIB = "flash_bwd_f32"
 # The head dims the kernels take, forward and backward alike, at any GQA
-# group (Hq % Hkv == 0): in bf16 the tensor-core kernels at WGMMA_DIMS of
-# theirs and the CUDA-core kernels at the rest; in fp32 the 3xTF32
-# tensor-core kernels at TF32X3_DIMS of theirs and the CUDA-core kernels at
-# the rest (the forward at all three).
+# group (Hq % Hkv == 0), and the kernel family of each dtype: in bf16 the
+# wgmma kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu, in fp32 the
+# 3xTF32 mma.sync kernels of csrc/flash_fwd_f32.cu and csrc/flash_bwd_f32.cu
+# (each family's library, by kernel: ROUTE_LIBS[route][kernel]).
 KERNEL_DIMS = (64, 128, 256)
-WGMMA_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
-              "flash_bwd_dkv": (64, 128, 256)}
-TF32X3_DIMS = {"flash_bwd_dq": (64, 128, 256), "flash_bwd_dkv": (64, 128, 256)}
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+ROUTE_LIBS = {"wgmma": {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
+                        "flash_bwd_dkv": "flash_bwd"},
+              "tf32x3": {"flash_fwd": "flash_fwd_f32", "flash_bwd_dq": "flash_bwd_f32",
+                         "flash_bwd_dkv": "flash_bwd_f32"}}
 F32_DKV_KEYS = 64  # keys a block of the fp32 dK/dV kernel owns (ROWS of flash_bwd_f32.cu)
-SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN = "attention_plain"
 
 
@@ -111,25 +110,30 @@ def _masked_logits(q, k, causal: bool, scale: float, einsum=torch.einsum):
     return logits
 
 
-def reference_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D]. Returns [B, Sq, Hq, D]."""
+def reference_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
+                        einsum=torch.einsum):
+    """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D]. Returns [B, Sq, Hq, D].
+    ``einsum`` computes its products (tests pass an emulation of the
+    kernels' 3xTF32 ones)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    probs = torch.softmax(_masked_logits(q, k, causal, scale), dim=-1)
+    probs = torch.softmax(_masked_logits(q, k, causal, scale, einsum), dim=-1)
     v = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+    return einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
-def reference_attention_lse(q, k, v, causal: bool = True, scale: Optional[float] = None):
+def reference_attention_lse(q, k, v, causal: bool = True, scale: Optional[float] = None,
+                            einsum=torch.einsum):
     """The plain forward that also returns lse [B, Hq, Sq] (fp32) and out_lo,
-    the rounding residual of out (0 in fp32): (out, lse, out_lo)."""
+    the rounding residual of out (0 in fp32): (out, lse, out_lo). ``einsum``
+    as in ``reference_attention``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    logits = _masked_logits(q, k, causal, scale)
+    logits = _masked_logits(q, k, causal, scale, einsum)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.exp(logits - lse[..., None])
     v = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
-    out32 = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    out32 = einsum("bhqk,bkhd->bqhd", probs, v)
     out = out32.to(q.dtype)
     return out, lse, (out32 - out.float()).to(q.dtype)
 
@@ -200,23 +204,19 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal attention requires Skv >= Sq, got {skv} < {sq}")
 
 
-def simt_route(kernel: str, dtype, head_dim: int) -> bool:
-    """Whether a CUDA call of ``kernel`` ("flash_fwd", "flash_bwd_dq" or
-    "flash_bwd_dkv") in this dtype and head dim goes to the CUDA-core
-    kernels (``csrc/attention_simt.cu``). bf16 goes to the tensor-core
-    kernels at the head dims of ``WGMMA_DIMS[kernel]``, fp32 to the 3xTF32
-    tensor-core kernels (``csrc/flash_bwd_f32.cu``) at those of
-    ``TF32X3_DIMS.get(kernel)``: today every head dim the kernels tile,
-    except the fp32 forward, which stays on the CUDA cores. Anything else
-    raises."""
+def kernel_route(kernel: str, dtype, head_dim: int) -> str:
+    """The kernel family a CUDA call of ``kernel`` ("flash_fwd",
+    "flash_bwd_dq" or "flash_bwd_dkv") in this dtype and head dim goes to:
+    "wgmma" (bf16: ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) or "tf32x3"
+    (fp32 on the tensor cores in 3xTF32: ``csrc/flash_fwd_f32.cu``,
+    ``csrc/flash_bwd_f32.cu``), both at every head dim of KERNEL_DIMS.
+    Anything else raises."""
     if head_dim not in KERNEL_DIMS:
         raise ValueError(f"{kernel} kernel takes head_dim "
                          f"{' or '.join(map(str, KERNEL_DIMS))}, got {head_dim}")
-    if dtype not in SIMT_DTYPES:
+    if dtype not in ROUTES:
         raise ValueError(f"{kernel} kernel takes bfloat16 or float32, got {dtype}")
-    if dtype == torch.float32:
-        return head_dim not in TF32X3_DIMS.get(kernel, ())
-    return head_dim not in WGMMA_DIMS[kernel]
+    return ROUTES[dtype]
 
 
 def dkv_split_count(b: int, skv: int, hkv: int, group: int, sms: int) -> int:
@@ -231,35 +231,56 @@ def dkv_split_count(b: int, skv: int, hkv: int, group: int, sms: int) -> int:
     return group
 
 
+# The C entry points' argument types, by symbol (pointers, ints, the scale,
+# for dK/dV in fp32 the split count, then the stream).
+_ARGTYPES = {
+    "flash_fwd_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_fwd_tf32x3": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_bwd_dq_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_bwd_dkv_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_bwd_dq_tf32x3": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_bwd_dkv_tf32x3": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(kernel: str, route: str):
+    """(library, C entry point, its symbol) of ``kernel`` on ``route``,
+    argument types set once. The symbol is ``<kernel>_bf16`` on the wgmma
+    route and ``<kernel>_tf32x3`` on the 3xTF32 one."""
+    lib = _kernels.library(ROUTE_LIBS[route][kernel])
+    symbol = f"{kernel}_{'bf16' if route == 'wgmma' else route}"
+    fn = getattr(lib, symbol)
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return lib, fn, symbol
+
+
 def _launch_fwd(q, k, v, causal: bool, scale: float, training: bool):
     """One launch of the forward kernel on CUDA tensors: (out, lse, out_lo),
     the last two None unless ``training``."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     _check_cuda_inputs("flash_fwd", q=q, k=k, v=v)
-    simt = simt_route("flash_fwd", q.dtype, d)
+    route = kernel_route("flash_fwd", q.dtype, d)
     out = torch.empty_like(q)
     lse = out_lo = None
     if training:
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
         out_lo = torch.empty_like(q)
-    args = [_kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
-            ctypes.c_void_p(lse.data_ptr() if training else None),
-            ctypes.c_void_p(out_lo.data_ptr() if training else None),
-            b, sq, skv, hq, hkv, d, int(causal), float(scale)]
-    if simt:
-        lib = _kernels.library(SIMT_LIB)
-        fn = lib.simt_flash_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
-                                                                   ctypes.c_void_p]
-        args.append(SIMT_DTYPES[q.dtype])
-    else:
-        lib = _kernels.library(FWD_LIB)
-        fn = lib.flash_fwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*args, _kernels.stream_of(q))
-    name = ("flash_fwd_lse" if training else "flash_fwd") + ("_simt" if simt else "")
+    lib, fn, _ = _entry("flash_fwd", route)
+    err = fn(_kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
+             ctypes.c_void_p(lse.data_ptr() if training else None),
+             ctypes.c_void_p(out_lo.data_ptr() if training else None),
+             b, sq, skv, hq, hkv, d, int(causal), float(scale), _kernels.stream_of(q))
+    name = ("flash_fwd_lse" if training else "flash_fwd") + ("_tf32x3" if route == "tf32x3"
+                                                            else "")
     _kernels.check(lib, err, name)
     _kernels.launch_counts[name] += 1
     return out, lse, out_lo
@@ -291,12 +312,12 @@ def flash_attention_lse(q, k, v, causal: bool = True, scale: Optional[float] = N
 
 def _check_cuda_inputs(kernel: str, **tensors) -> None:
     """Device, dtype (one for all: q's), contiguity and alignment; the head
-    dim and the dtype's route are ``simt_route``'s."""
+    dim and the dtype's route are ``kernel_route``'s."""
     q = tensors["q"]
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must lie on {q.device}, got {t.device}")
-        if t.dtype not in SIMT_DTYPES or t.dtype != q.dtype:
+        if t.dtype not in ROUTES or t.dtype != q.dtype:
             raise ValueError(f"{kernel} kernel takes bfloat16 or float32, all of one dtype; "
                              f"got {name}.dtype={t.dtype}, q.dtype={q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -310,36 +331,19 @@ def _check_rows(b: int, hq: int, sq: int, device, **rows) -> None:
             raise ValueError(f"{name} must be a contiguous float32 [B, Hq, Sq] tensor on {device}")
 
 
-_BWD_ARGTYPES = {
-    "flash_bwd_dq_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_void_p],
-    "flash_bwd_dkv_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_void_p],
-    "flash_bwd_dq_tf32x3": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_void_p],
-    "flash_bwd_dkv_tf32x3": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-}
-
-
 def _launch_bwd(name: str, tensors, q, k, causal: bool, scale: float, splits=None) -> None:
     """One launch of K2 (``name`` "flash_bwd_dq") or K3 ("flash_bwd_dkv"):
     bf16 on the wgmma kernels, fp32 on the 3xTF32 ones (``splits``: K3's
     blocks along the group, whose ``tensors`` end with the workspace)."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    simt_route(name, q.dtype, d)  # raises on a head dim or dtype no kernel takes
+    route = kernel_route(name, q.dtype, d)  # raises on a head dim or dtype no kernel takes
     args = [*(ctypes.c_void_p(None if t is None else t.data_ptr()) for t in tensors),
             b, sq, skv, hq, hkv, d, int(causal), float(scale)]
-    if q.dtype == torch.float32:
-        lib, symbol = _kernels.library(F32_BWD_LIB), f"{name}_tf32x3"
+    lib, fn, symbol = _entry(name, route)
+    if route == "tf32x3":
         args += [] if splits is None else [splits]
         name = symbol  # the launch count's name
-    else:
-        lib, symbol = _kernels.library(BWD_LIB), f"{name}_bf16"
-    fn = getattr(lib, symbol)
-    fn.argtypes = _BWD_ARGTYPES[symbol]
-    fn.restype = ctypes.c_int
     err = fn(*args, _kernels.stream_of(q))
     _kernels.check(lib, err, name)
     _kernels.launch_counts[name] += 1

@@ -424,7 +424,7 @@ def test_flash_op_gradients_match_plain(dev, b, sq, skv, causal):
 # (chip_smoke.py's model-phase tolerance): max |diff| / max |fp32|.
 MODEL_RTOL = 5e-2
 KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention")
-KERNELS += tuple(f"{n}_simt" for n in KERNELS) + ("flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")
+KERNELS += tuple(f"{n}_tf32x3" for n in KERNELS[:4]) + ("paged_attention_f32",)
 PLAINS = ("attention_plain", "paged_attention_plain")
 
 
@@ -958,8 +958,10 @@ def test_sharded_eval_step_launches_the_forward_kernel(mesh1):
 
 
 # --------------------------------------------------------------------------- #
-# Fault C5: any GQA group and head dim 256 on the decode kernel, the CUDA-core
-# kernels (fp32 at D64/128/256) of attention_simt.cu, and bf16 at D256.
+# Fault C5: any GQA group and head dim 256 on the decode kernel, the fp32
+# kernels at D64/128/256 (the 3xTF32 forward and backward of flash_fwd_f32.cu
+# and flash_bwd_f32.cu, the decode of paged_attention_f32.cu), and bf16 at
+# D256.
 # fp32 kernels against the plain versions (fp32 math, full fp32 products) at
 # the JAX tests' fp32 tolerance: |kernel - plain| <= 2e-5 + 2e-5 |plain|.
 # --------------------------------------------------------------------------- #
@@ -1007,8 +1009,8 @@ SIMT_CASES = [  # (b, sq, skv, hq, hkv, d, causal)
 @pytest.mark.parametrize("shape", SIMT_CASES)
 def test_simt_kernels_fp32_match_plain(dev, shape):
     """The forward (with and without lse), dQ and dK/dV in fp32 against the
-    plain versions at 2e-5; the forward launches its _simt kernel once, dQ
-    and dK/dV their 3xTF32 tensor-core kernels (flash_bwd_f32.cu)."""
+    plain versions at 2e-5, each launching its 3xTF32 tensor-core kernel
+    once (flash_fwd_f32.cu, flash_bwd_f32.cu)."""
     causal, scale = shape[-1], shape[5] ** -0.5
     q, k, v, dout = _f32_case(shape, sum(shape[:6]), dev)
     before = _counts()
@@ -1018,7 +1020,7 @@ def test_simt_kernels_fp32_match_plain(dev, shape):
     dq = ta.flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
     dk, dv = ta.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
     torch.cuda.synchronize()
-    assert _delta(before) == {"flash_fwd_simt": 1, "flash_fwd_lse_simt": 1,
+    assert _delta(before) == {"flash_fwd_tf32x3": 1, "flash_fwd_lse_tf32x3": 1,
                               "flash_bwd_dq_tf32x3": 1, "flash_bwd_dkv_tf32x3": 1}
     ref, ref_lse, _ = ta.reference_attention_lse(q, k, v, causal)
     _close_f32(out, ref)
@@ -1096,8 +1098,8 @@ def test_flash_bwd_d256_kernels_match_plain(dev, shape):
 
 @pytest.mark.parametrize("nh,nkv,d", [(8, 2, 64), (16, 16, 128), (16, 4, 128), (8, 2, 256)])
 def test_simt_paged_attention_fp32_matches_plain(dev, nh, nkv, d):
-    """The CUDA-core decode kernel in fp32 at 2e-5, with a retired slot and
-    any page size."""
+    """The fp32 decode kernels (paged_attention_f32.cu) at 2e-5, with a
+    retired slot and a page size (12) that is no multiple of 8."""
     g = torch.Generator().manual_seed(d + nh)
     lengths = torch.randint(1, 40 * 12 + 1, (6,), generator=g).tolist()
     q, kp, vp, table, lengths = _paged_case(dev, lengths, nh, nkv, d, 12, 40, retired=(1,),
@@ -1106,8 +1108,66 @@ def test_simt_paged_attention_fp32_matches_plain(dev, nh, nkv, d):
     before = _counts()
     out = pd.paged_attention(*args)
     torch.cuda.synchronize()
-    assert _delta(before) == {"paged_attention_simt": 1}
+    assert _delta(before) == {"paged_attention_f32": 1}
     _close_f32(out, pd._paged_attention_reference(*args, 1.0))
+
+
+@pytest.mark.parametrize("nh,nkv,d,ps", [(16, 16, 128, 64), (16, 4, 128, 64), (16, 2, 128, 64),
+                                         (32, 1, 128, 64), (8, 2, 64, 12), (8, 1, 256, 12),
+                                         (16, 4, 256, 64), (8, 8, 64, 64)])
+def test_paged_attention_fp32_long_and_bitwise(dev, nh, nkv, d, ps):
+    """The fp32 decode at groups 1, 4, 8 and 32 and D64/128/256: the serving
+    table (lengths 1..512, a retired slot, slots split over blocks and
+    merged) and 4 slots of 1537..2048 rows, at 2e-5, two launches bitwise
+    equal."""
+    g = torch.Generator().manual_seed(nh * 7 + nkv + d + ps)
+    for lengths, max_pages in ((torch.randint(1, 513, (8,), generator=g).tolist(), -(-512 // ps)),
+                               (torch.randint(1537, 2049, (4,), generator=g).tolist(),
+                                -(-2048 // ps))):
+        q, kp, vp, table, lengths = _paged_case(dev, lengths, nh, nkv, d, ps, max_pages,
+                                                retired=(1,), g=g, dev_seed=d + ps)
+        args = (q.float(), kp.float(), vp.float(), table, lengths)
+        before = _counts()
+        runs = [pd.paged_attention(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert _delta(before) == {"paged_attention_f32": 2}
+        assert torch.equal(runs[0], runs[1])
+        _close_f32(runs[0], pd._paged_attention_reference(*args, 1.0))
+
+
+def _reference_lse_by_batch(q, k, v, causal):
+    """reference_attention_lse one batch element at a time (the logits of
+    B8 S4096 at 16 heads would take 8.6 GB at once)."""
+    parts = [ta.reference_attention_lse(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal)
+             for i in range(q.shape[0])]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 2048, 16, 4, 128, True),
+                                   (8, 4096, 4096, 16, 4, 128, True),
+                                   (2, 512, 512, 16, 4, 128, True),
+                                   (2, 300, 700, 8, 1, 64, True), (1, 1, 200, 8, 8, 256, False),
+                                   (2, 196, 196, 16, 16, 64, False),
+                                   (1, 1024, 1024, 8, 2, 256, True)])
+def test_flash_fwd_fp32_long_and_bitwise(dev, shape):
+    """The fp32 forward (flash_fwd_f32.cu, 3xTF32) at llama_1b's training
+    shape and at S4096 (the longest sums over keys), the c5 train shape, and
+    D64/D256 at groups 1, 4 and 8: out and lse at 2e-5 against the plain
+    forward; K1 and K1' each launched twice, bitwise equal, and K1's out
+    equal to K1''s."""
+    causal = shape[-1]
+    q, k, v, _ = _f32_case(shape, sum(shape[:6]) + 3, dev)
+    before = _counts()
+    outs = [flash_attention(q, k, v, causal=causal) for _ in range(2)]
+    fwd = [ta.flash_attention_lse(q, k, v, causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _delta(before) == {"flash_fwd_tf32x3": 2, "flash_fwd_lse_tf32x3": 2}
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], fwd[0][0])
+    assert all(torch.equal(a, b) for a, b in zip(fwd[0], fwd[1]))
+    assert not fwd[0][2].any()
+    ref, ref_lse = _reference_lse_by_batch(q, k, v, causal)
+    _close_f32(outs[0], ref)
+    _close_f32(fwd[0][1], ref_lse)
 
 
 @pytest.mark.parametrize("dtype,nkv,head_dim", [
@@ -1117,7 +1177,7 @@ def test_c5_engine_on_the_card(dev, dtype, nkv, head_dim):
     """A narrow 2-layer config at groups 4, 2 and 8 (fp32) and 1 and 4 (bf16),
     and at D256 (bf16): the engine is built and answers, through the kernels
     only (the prefill through the tensor-core forward in bf16, D256 too, and
-    the CUDA-core forward in fp32); in fp32 the greedy tokens equal the
+    the 3xTF32 forward in fp32); in fp32 the greedy tokens equal the
     CPU's."""
     from ray_tpu_torch.models.llama import llama_init
     from ray_tpu_torch.serve.llm import LLMEngine
@@ -1135,12 +1195,13 @@ def test_c5_engine_on_the_card(dev, dtype, nkv, head_dim):
         eng.stop()
     counts = _delta(before)
     assert not {n: c for n, c in counts.items() if n in PLAINS}, counts
-    simt = "" if dtype == torch.bfloat16 else "_simt"
-    assert counts.get("flash_fwd" + simt, 0) > 0, counts
-    assert counts.get("paged_attention" + simt, 0) > 0, counts
-    # bf16 (D256 included) never reaches the CUDA-core forward, fp32 only it
-    assert not counts.get("flash_fwd" + ("_simt" if dtype == torch.bfloat16 else ""), 0), counts
-    assert not counts.get("flash_fwd_lse_simt", 0), counts
+    bf16 = dtype == torch.bfloat16
+    fwd, other = ("flash_fwd", "flash_fwd_tf32x3")[::1 if bf16 else -1]
+    assert counts.get(fwd, 0) > 0, counts
+    assert counts.get("paged_attention" if bf16 else "paged_attention_f32", 0) > 0, counts
+    # bf16 (D256 included) never reaches the fp32 forward, fp32 only it
+    assert not counts.get(other, 0), counts
+    assert not counts.get("flash_fwd_lse_tf32x3", 0), counts
     assert all(len(t) == 6 for t in got)
     if dtype == torch.float32:
         cpu = LLMEngine(cfg, params, device="cpu", num_slots=2, max_seq_len=128, page_size=16,

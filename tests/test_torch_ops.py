@@ -17,6 +17,7 @@ from ray_tpu.ops.attention import reference_attention as j_reference_attention
 from ray_tpu.ops.norms import rms_norm as j_rms_norm
 from ray_tpu.ops.rope import apply_rope as j_apply_rope
 from ray_tpu.ops.rope import rope_frequencies as j_rope_frequencies
+from ray_tpu_torch import _kernels
 from ray_tpu_torch.models import llama as tl
 import ray_tpu_torch.ops.attention as ta
 from ray_tpu_torch.ops.norms import rms_norm as t_rms_norm
@@ -123,7 +124,7 @@ def test_attention_matches_jax_reference_and_interpret_kernel(b, sq, skv, hq, hk
     (64, True, True),     # ... and the backward kernels
     (32, False, False),   # tiny: D32
     (32, True, False),
-    (256, False, True),   # D256: the tensor-core forward in bf16 (CUDA cores in fp32)
+    (256, False, True),   # D256: the tensor-core forward (wgmma in bf16, 3xTF32 in fp32)
     (256, True, True),    # ... and the tensor-core backward
     (384, False, False),
 ])
@@ -133,27 +134,30 @@ def test_flash_dispatch_rule(d, grad, tiles):
     assert ta.flash_tiles(d, grad) is tiles
 
 
-@pytest.mark.parametrize("kernel,dtype,d,simt", [
-    ("flash_fwd", torch.bfloat16, 256, False),     # the tensor-core forward at D256
-    ("flash_bwd_dq", torch.bfloat16, 256, False),  # the D256 backward on the tensor cores
-    ("flash_bwd_dkv", torch.bfloat16, 256, False),
-    ("flash_fwd", torch.bfloat16, 64, False),
-    ("flash_fwd", torch.bfloat16, 128, False),
-    ("flash_bwd_dq", torch.bfloat16, 64, False),
-    ("flash_bwd_dkv", torch.bfloat16, 128, False),
-    ("flash_fwd", torch.float32, 64, True),        # the fp32 forward: the CUDA cores
-    ("flash_fwd", torch.float32, 128, True),
-    ("flash_fwd", torch.float32, 256, True),
-    ("flash_bwd_dq", torch.float32, 128, False),   # the fp32 backward: 3xTF32 tensor cores
-    ("flash_bwd_dkv", torch.float32, 256, False),
-    ("flash_bwd_dq", torch.float32, 64, False),
-    ("flash_bwd_dq", torch.float32, 256, False),
-    ("flash_bwd_dkv", torch.float32, 64, False),
-    ("flash_bwd_dkv", torch.float32, 128, False),
+@pytest.mark.parametrize("kernel,dtype,d,route", [
+    ("flash_fwd", torch.bfloat16, 256, "wgmma"),     # the tensor-core forward at D256
+    ("flash_bwd_dq", torch.bfloat16, 256, "wgmma"),  # the D256 backward on the tensor cores
+    ("flash_bwd_dkv", torch.bfloat16, 256, "wgmma"),
+    ("flash_fwd", torch.bfloat16, 64, "wgmma"),
+    ("flash_fwd", torch.bfloat16, 128, "wgmma"),
+    ("flash_bwd_dq", torch.bfloat16, 64, "wgmma"),
+    ("flash_bwd_dkv", torch.bfloat16, 128, "wgmma"),
+    ("flash_fwd", torch.float32, 64, "tf32x3"),      # the fp32 forward: 3xTF32 tensor cores
+    ("flash_fwd", torch.float32, 128, "tf32x3"),
+    ("flash_fwd", torch.float32, 256, "tf32x3"),
+    ("flash_bwd_dq", torch.float32, 128, "tf32x3"),  # the fp32 backward: 3xTF32 tensor cores
+    ("flash_bwd_dkv", torch.float32, 256, "tf32x3"),
+    ("flash_bwd_dq", torch.float32, 64, "tf32x3"),
+    ("flash_bwd_dq", torch.float32, 256, "tf32x3"),
+    ("flash_bwd_dkv", torch.float32, 64, "tf32x3"),
+    ("flash_bwd_dkv", torch.float32, 128, "tf32x3"),
 ])
-def test_simt_route(kernel, dtype, d, simt):
-    """Which kernels a CUDA call reaches, by kernel, dtype and head dim."""
-    assert ta.simt_route(kernel, dtype, d) is simt
+def test_simt_route(kernel, dtype, d, route):
+    """Which kernel family a CUDA call reaches, by kernel, dtype and head dim
+    (no call reaches the CUDA cores any more), and that the family's library
+    for the kernel is built from a source in the package."""
+    assert ta.kernel_route(kernel, dtype, d) == route
+    assert (_kernels.CSRC / f"{ta.ROUTE_LIBS[route][kernel]}.cu").is_file()
 
 
 @pytest.mark.parametrize("b,skv,hkv,group,sms,splits", [
@@ -178,7 +182,7 @@ def test_dkv_split_count(b, skv, hkv, group, sms, splits):
 ])
 def test_simt_route_raises_on_what_no_kernel_takes(kernel, dtype, d, match):
     with pytest.raises(ValueError, match=match):
-        ta.simt_route(kernel, dtype, d)
+        ta.kernel_route(kernel, dtype, d)
 
 
 @pytest.mark.parametrize("grad", [False, True])

@@ -119,6 +119,26 @@ def test_split_count(b, nkv, max_pages, ps, sms, want):
     assert got == chunks or b * nkv * got >= sms
 
 
+@pytest.mark.parametrize("b,nkv,max_pages,ps,sms,want", [
+    (8, 4, 8, 64, 132, 8),      # the c5 fp32 engine: 32 pairs, 8 chunks of 64 rows, all split
+    (64, 4, 32, 64, 132, 2),    # 256 pairs: two blocks a pair reach two an SM
+    (4, 4, 32, 64, 132, 17),    # few slots, long table: 272 blocks
+    (1, 4, 32, 64, 132, 32),    # one slot: as many splits as the table has chunks
+    (6, 4, 40, 12, 132, 8),     # page size 12: 480 rows, 8 chunks
+    (3, 1, 1, 64, 132, 1),      # a table of one chunk
+])
+def test_split_count_f32(b, nkv, max_pages, ps, sms, want):
+    """The fp32 decode's plan: chunks of F32_CHUNK rows, splits until the
+    grid gives each SM F32_BLOCKS_PER_SM blocks, never more than the
+    table's chunks."""
+    plan = dict(chunk=tpd.F32_CHUNK, per_sm=tpd.F32_BLOCKS_PER_SM)
+    got = tpd.split_count(b, nkv, max_pages, ps, sms, **plan)
+    assert got == want
+    chunks = -(-max_pages * ps // tpd.F32_CHUNK)
+    assert 1 <= got <= chunks
+    assert got == chunks or b * nkv * got >= tpd.F32_BLOCKS_PER_SM * sms
+
+
 @pytest.mark.parametrize("ps,ok", [(8, True), (16, True), (24, True), (48, True), (64, True),
                                    (96, True), (192, True), (0, False), (4, False),
                                    (12, False), (30, False)])
@@ -142,7 +162,7 @@ def test_paged_dispatch_rule(d, tiles):
 
 @pytest.mark.parametrize("d,dtype,tiles", [
     (128, torch.bfloat16, True), (256, torch.bfloat16, True),     # the tensor-core kernel
-    (64, torch.float32, True), (128, torch.float32, True),        # the CUDA-core kernel
+    (64, torch.float32, True), (128, torch.float32, True),        # the fp32 kernel
     (256, torch.float32, True),
     (64, torch.bfloat16, False),                                  # no bf16 kernel at D64
     (384, torch.bfloat16, False), (512, torch.bfloat16, False),   # fault C10: above 256
@@ -162,7 +182,7 @@ def test_paged_route_by_head_dim_and_dtype(d, dtype, tiles):
     (128, 16, 8, torch.bfloat16, None),            # group 2
     (128, 28, 4, torch.bfloat16, None),            # group 7
     (256, 16, 4, torch.bfloat16, None),            # D256
-    (128, 16, 4, torch.float32, None),             # fp32: the CUDA-core kernel
+    (128, 16, 4, torch.float32, None),             # fp32: the fp32 kernel
     (384, 16, 4, torch.bfloat16, "D 128 or 256"),  # above 256: the one limit left
     (128, 16, 4, torch.float16, "bfloat16 or float32"),
     (128, 16, 3, torch.bfloat16, "nh % n_kv"),

@@ -1,15 +1,17 @@
-"""The fp32 flash backward's 3xTF32 numerics on the CPU, before the card.
+"""The fp32 flash kernels' 3xTF32 numerics on the CPU, before the card.
 
-``csrc/flash_bwd_f32.cu`` computes dQ (K2) and dK/dV (K3) in fp32 on the
-tensor cores in 3xTF32: each operand x is split as hi = tf32(x) and
+``csrc/flash_fwd_f32.cu`` computes the forward (K1, K1') and
+``csrc/flash_bwd_f32.cu`` dQ (K2) and dK/dV (K3) in fp32 on the tensor
+cores in 3xTF32: each operand x is split as hi = tf32(x) and
 lo = tf32(x - hi), tf32 being ``cvt.rna`` (round to nearest, ties away from
 zero, to 10 mantissa bits), and each product is lo.hi + hi.lo + hi.hi,
 accumulated in fp32. Here those products are emulated in torch and run
-through the port's plain dQ and dK/dV (``einsum=``); the result is held
-against the JAX package's Pallas backward in interpret mode, as
-tests/test_ops_attention.py holds fp32 flash: atol = rtol = 2e-5. Both
-take the same residuals (JAX's out and lse), so only the backward differs.
-Plain TF32 (hi.hi alone) misses that tolerance, which the last test shows.
+through the port's plain forward and plain dQ and dK/dV (``einsum=``); the
+result is held against the JAX package's Pallas forward and backward in
+interpret mode, as tests/test_ops_attention.py holds fp32 flash:
+atol = rtol = 2e-5. The backward takes JAX's residuals (out and lse), so
+only the backward differs there. Plain TF32 (hi.hi alone) misses that
+tolerance, which the last two tests show.
 """
 
 import importlib
@@ -113,6 +115,39 @@ def _port_backward(q, k, v, g, out, lse, causal, einsum):
     return dq, dk, dv
 
 
+def _port_forward(q, k, v, causal, einsum):
+    """The port's plain forward with ``einsum``'s products: (out, lse) from
+    reference_attention_lse, and reference_attention's out."""
+    q_, k_, v_ = (torch.from_numpy(np.array(a)) for a in (q, k, v))
+    out, lse, out_lo = ta.reference_attention_lse(q_, k_, v_, causal, einsum=einsum)
+    assert not out_lo.any()  # fp32: no rounding residual
+    return out, lse, ta.reference_attention(q_, k_, v_, causal, einsum=einsum)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,block", CASES)
+def test_tf32x3_forward_matches_jax_interpret(b, sq, skv, hq, hkv, d, causal, block):
+    """K1 and K1' in 3xTF32 (flash_fwd_f32.cu's products) against the Pallas
+    forward in interpret mode: out and lse within 2e-5."""
+    q, k, v, g = _inputs(b, sq, skv, hq, hkv, d, seed=sq + skv + hq + d)
+    out, lse, _ = _jax_backward(q, k, v, g, causal, block)
+    got_out, got_lse, got_k1 = _port_forward(q, k, v, causal, einsum_tf32x3)
+    for name, a, w in (("out", got_out, out), ("lse", got_lse, lse), ("K1 out", got_k1, out)):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        np.testing.assert_allclose(a.numpy(), w, atol=TOL, rtol=TOL, err_msg=name)
+
+
+def test_plain_tf32_forward_misses_the_tolerance():
+    """The reason for three products in the forward too: one TF32 product
+    per pair misses 2e-5 on the c5 fp32 heads."""
+    b, sq, skv, hq, hkv, d, causal, block = CASES[4]
+    q, k, v, g = _inputs(b, sq, skv, hq, hkv, d, seed=sq + skv + hq + d)
+    out, lse, _ = _jax_backward(q, k, v, g, causal, block)
+    got_out, got_lse, _ = _port_forward(q, k, v, causal, einsum_tf32)
+    worst = max(float((np.abs(a.numpy() - w) / (TOL + TOL * np.abs(w))).max())
+                for a, w in ((got_out, out), (got_lse, lse)))
+    assert worst > 1.0
+
+
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,block", CASES)
 def test_tf32x3_backward_matches_jax_interpret(b, sq, skv, hq, hkv, d, causal, block):
     q, k, v, g = _inputs(b, sq, skv, hq, hkv, d, seed=sq + skv + hq + d)
@@ -124,8 +159,8 @@ def test_tf32x3_backward_matches_jax_interpret(b, sq, skv, hq, hkv, d, causal, b
 
 
 def test_plain_tf32_misses_the_tolerance():
-    """The reason for three products: one TF32 product per pair misses
-    2e-5 on the c5 fp32 heads."""
+    """The reason for three products in the backward: one TF32 product per
+    pair misses 2e-5 on the c5 fp32 heads."""
     b, sq, skv, hq, hkv, d, causal, block = CASES[4]
     q, k, v, g = _inputs(b, sq, skv, hq, hkv, d, seed=sq + skv + hq + d)
     out, lse, want = _jax_backward(q, k, v, g, causal, block)
