@@ -23,18 +23,29 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 # process-wide buffer: async actor methods record on the event-loop thread
 # while the flush runs on an executor thread, so the buffer must NOT be
 # thread-local. Bounded: an unflushed producer (local runtime, long-lived
-# profiling loop) can't grow memory without limit.
+# profiling loop, a serving engine's loop) can't grow memory without limit;
+# a full buffer drops its oldest span and counts it (``dropped()``).
 _MAX_PENDING = 20000
-_spans: List[Dict[str, Any]] = []
+_spans: Deque[Dict[str, Any]] = deque(maxlen=_MAX_PENDING)
+_dropped = 0
 _lock = threading.Lock()
 # local-runtime sink (no agent to ship to): bounded in-process span log
-_local_runtime_spans: List[Dict[str, Any]] = []
+_local_runtime_spans: Deque[Dict[str, Any]] = deque(maxlen=_MAX_PENDING)
+
+
+def _append(span: Dict[str, Any]) -> None:
+    global _dropped
+    with _lock:
+        if len(_spans) == _MAX_PENDING:
+            _dropped += 1
+        _spans.append(span)
 
 
 @contextmanager
@@ -58,29 +69,38 @@ def profile(name: str, extra: Optional[Dict[str, Any]] = None):
                     else str(task_id)
         except Exception:  # noqa: BLE001 - outside a runtime
             pass
-        with _lock:
-            _spans.append(span)
-            del _spans[:-_MAX_PENDING]
+        _append(span)
 
 
 def record_external_span(name: str, start: float, end: float,
                          extra: Optional[Dict[str, Any]] = None) -> None:
     """Record an already-timed span (the tracing bridge: util/tracing.py
-    spans ride the same flush path to the agent/timeline)."""
+    spans ride the same flush path to the agent/timeline; serve/llm.py's
+    engine loop records its iterations and requests here)."""
     span: Dict[str, Any] = {"name": str(name), "start": start, "end": end}
     if extra:
         span["extra"] = {str(k): v for k, v in extra.items()}
-    with _lock:
-        _spans.append(span)
-        del _spans[:-_MAX_PENDING]
+    _append(span)
 
 
 def drain() -> List[Dict[str, Any]]:
     """Take (and clear) every recorded span (worker/local flush paths)."""
-    global _spans
     with _lock:
-        out, _spans = _spans, []
+        out = list(_spans)
+        _spans.clear()
     return out
+
+
+def snapshot() -> List[Dict[str, Any]]:
+    """Copy the pending spans, oldest first, without draining them."""
+    with _lock:
+        return list(_spans)
+
+
+def dropped() -> int:
+    """Spans dropped since the process started because the pending buffer
+    was full (the oldest go first)."""
+    return _dropped
 
 
 def flush_local() -> None:
@@ -90,7 +110,6 @@ def flush_local() -> None:
     if spans:
         with _lock:
             _local_runtime_spans.extend(spans)
-            del _local_runtime_spans[:-_MAX_PENDING]
 
 
 def local_spans() -> List[Dict[str, Any]]:

@@ -9,7 +9,18 @@
 - decode runs ``decode_chunk`` ticks per loop iteration and hands the
   chunk's tokens (plus any first tokens from this round's prefills) to the
   host with ONE device-to-host copy;
-- per-request TTFT and latency; engine ``stats``; streaming.
+- per-request TTFT and latency; engine ``stats``; streaming;
+- every loop iteration that does work is recorded through
+  ``ray_tpu_torch.profiling`` as spans on ``time.time()``, the clock
+  ``torch.profiler`` puts device activity on: ``engine.step`` is tiled by
+  ``engine.admit`` (which holds each ``engine.prefill`` program, with its
+  ``bucket``, ``rows`` and prompt ``lengths``, and that program's
+  ``engine.h2d`` copies), ``engine.decode`` (enqueueing the chunk),
+  ``engine.d2h`` (the host waiting for the chunk's tokens) and
+  ``engine.deliver``; ``engine.step`` carries the chunk's ``ticks``. Each
+  request adds ``request.queue``, from its submission to the start of the
+  prefill program that takes it. Every span carries the engine's id and the
+  iteration (``step``); an idle poll records nothing.
 
 The loop runs on a background thread. ``torch.inference_mode`` is
 thread-local, so the loop enters it itself. The loop logs and survives any
@@ -22,6 +33,7 @@ dicts {"tokens": [...], "max_tokens": N} -> {"tokens": [...], "ttft_s": ...}.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -33,10 +45,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch import profiling
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("serve.llm")
+
+_request_ids = itertools.count(1)
+_engine_ids = itertools.count(1)
 
 
 @dataclass
@@ -46,6 +62,7 @@ class GenRequest:
     eos_token: Optional[int]
     future: Future
     submitted_at: float = field(default_factory=time.perf_counter)
+    id: int = field(default_factory=lambda: next(_request_ids))
     ttft_s: Optional[float] = None
     out_tokens: List[int] = field(default_factory=list)
     slot: int = -1
@@ -142,6 +159,8 @@ class LLMEngine:
         self._tokens_out = 0
         self._prefill_programs = 0
         self._started = time.perf_counter()
+        self._id = next(_engine_ids)
+        self._iterations = 0  # working loop iterations recorded
         self._thread = threading.Thread(target=self._loop, daemon=True, name="llm-engine")
         self._thread.start()
 
@@ -229,13 +248,17 @@ class LLMEngine:
                 req = self._pending.get_nowait()
             except queue.Empty:
                 return
+            start, now = time.time(), time.perf_counter()
+            self._span("request.queue", start - (now - req.submitted_at), start, request=req.id)
             n = len(req.tokens)
             bucket = self._bucket_for(n)
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :n] = req.tokens
-            logits, self.cache = self._prefill(
-                self.params, self.cache, torch.from_numpy(padded).to(self.device),
-                free, min(n, bucket))
+            copy = time.time()
+            inputs = torch.from_numpy(padded).to(self.device)
+            self._span("engine.h2d", copy, time.time())
+            logits, self.cache = self._prefill(self.params, self.cache, inputs, free,
+                                               min(n, bucket))
             self._prefill_programs += 1
             first = torch.argmax(logits).to(torch.int32)  # device scalar
             req.pending_first = first
@@ -244,6 +267,7 @@ class LLMEngine:
             self._tokens[free] = first
             self._positions[free] = n
             self._active[free] = True
+            self._span("engine.prefill", start, time.time(), bucket=bucket, rows=1, lengths=[n])
 
     def _admit_paged_batched(self) -> None:
         """Pull every admissible request, group by prefill bucket, and run
@@ -289,6 +313,9 @@ class LLMEngine:
     def _prefill_group(self, chunk: List[tuple], bucket: int, size: int) -> None:
         """One batched prefill for ``chunk`` (padded to ``size`` rows; pad
         rows write to the trash page and are discarded)."""
+        start, now = time.time(), time.perf_counter()
+        for req, *_ in chunk:
+            self._span("request.queue", start - (now - req.submitted_at), start, request=req.id)
         dev = self.device
         n_pages = bucket // self.page_size
         tokens = np.zeros((size, bucket), np.int32)
@@ -299,22 +326,35 @@ class LLMEngine:
             tokens[row, :n] = req.tokens
             page_arr[row] = pages[:n_pages]
             lengths[row] = min(n, bucket)
-        logits, self.cache = self._prefill(
-            self.params, self.cache, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(page_arr).to(dev), torch.from_numpy(lengths).to(dev))
+        copy = time.time()
+        inputs = [torch.from_numpy(a).to(dev) for a in (tokens, page_arr, lengths)]
+        self._span("engine.h2d", copy, time.time())
+        logits, self.cache = self._prefill(self.params, self.cache, *inputs)
         self._prefill_programs += 1
         firsts = torch.argmax(logits, dim=-1).to(torch.int32)  # [size], on device
         for row, (req, slot, pages, _b) in enumerate(chunk):
             self._slot_pages[slot] = pages
             trow = np.zeros((self.pages_per_slot,), np.int32)
             trow[: len(pages)] = pages
-            self._table[slot] = torch.from_numpy(trow).to(dev)
+            copy = time.time()
+            table_row = torch.from_numpy(trow).to(dev)
+            self._span("engine.h2d", copy, time.time())
+            self._table[slot] = table_row
             req.pending_first = firsts[row]
             req.slot = slot
             self._slots[slot] = req
             self._tokens[slot] = firsts[row]
             self._positions[slot] = len(req.tokens)
             self._active[slot] = True
+        self._span("engine.prefill", start, time.time(), bucket=bucket, rows=size,
+                   lengths=[len(item[0].tokens) for item in chunk])
+
+    def _span(self, name: str, start: float, end: float, **extra) -> None:
+        """Record a span of the iteration under way (``time.time()``
+        seconds). Only a working iteration records, so it is the one after
+        the last that did."""
+        extra["engine"], extra["step"] = self._id, self._iterations + 1
+        profiling.record_external_span(name, start, end, extra)
 
     def _push_stream(self, req: GenRequest) -> None:
         if req.stream_q is None:
@@ -360,10 +400,13 @@ class LLMEngine:
         })
 
     def _step(self) -> None:
+        start = time.time()
         self._admit()
         if not any(r is not None for r in self._slots):
-            time.sleep(0.01)  # idle: poll for work
+            time.sleep(0.01)  # idle: poll for work, record nothing
             return
+        admitted = time.time()
+        self._span("engine.admit", start, admitted)
         if self.paged:
             sampled, last, self._positions, self.cache = self._decode(
                 self.params, self.cache, self._tokens, self._positions,
@@ -374,6 +417,8 @@ class LLMEngine:
                 self._active, self._gen)
         self._tokens = last
         self._steps += self.decode_chunk
+        decoded = time.time()
+        self._span("engine.decode", admitted, decoded)
         # ONE host copy per chunk: the chunk's tokens and any pending first
         # tokens from this round's prefills
         first_slots = [slot for slot, req in enumerate(self._slots)
@@ -383,6 +428,8 @@ class LLMEngine:
         host = flat.cpu().numpy()
         host_tokens = host[: sampled.numel()].reshape(sampled.shape)
         host_firsts = dict(zip(first_slots, host[sampled.numel():]))
+        copied = time.time()
+        self._span("engine.d2h", decoded, copied)
         now = time.perf_counter()
         for slot, first in host_firsts.items():
             req = self._slots[slot]
@@ -403,6 +450,10 @@ class LLMEngine:
             self._push_stream(req)
             if self._finished(req):
                 self._retire(slot)
+        end = time.time()
+        self._span("engine.deliver", copied, end)
+        self._span("engine.step", start, end, ticks=self.decode_chunk)
+        self._iterations += 1
 
     def _loop(self) -> None:
         with torch.inference_mode():
